@@ -1,0 +1,655 @@
+"""LLM ensemble selection: GreedyLLM (Alg. 1), SurGreedyLLM (Alg. 2) and the
+adaptive ThriftLLM loop (Alg. 3), in torch.
+
+The PyTorch port of ``repro/core/selection.py``. Two planes with bitwise
+identical outputs, each bitwise the reference's under the same seed:
+
+* the **serial** plane (:func:`sur_greedy`) — numpy round logic, one
+  device evaluation per greedy round through the grouped CRN estimator;
+* the **batched** plane (:func:`sur_greedy_many`) — G (p-vector, budget)
+  groups planned together by :func:`_sur_greedy_scan_core`, whose two
+  ``lax.while_loop``s are Python ``while`` loops over device tensors.
+
+Both planes evaluate xi through the bit-stable cores in
+:mod:`repro_torch.core.mc` and run the same IEEE-f64 round logic
+(affordability, gain/cost ratios, the Alg. 1 p/b tie-break), one op per
+statement in the reference's order; transcendental functions stay on the
+host in numpy, as in the reference.
+
+Differences from the reference: no ``jit`` and no donation (``donate`` has
+no counterpart), no compile buckets over groups (``group_bucket`` is gone:
+groups are not padded), and the ``full=False`` planner surface and
+``_sur_greedy_many_hostgamma`` baseline wait for a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import prng
+from .belief import empty_log_belief, log_weight, predict_from_beliefs, top2_beliefs
+from .correctness import gamma
+from .mc import GroupedXiEstimator, _marginal_xi_core, _tables_xi_core, theta_for
+from .types import InvocationResult, SelectionResult, clip_probs
+
+# Continue invoking on near-ties so Prop. 4 (prediction equality) holds
+# deterministically; costs at most the paper's condition, never more than S*.
+STOP_MARGIN = 1e-9
+RATIO_TIE_RTOL = 1e-9
+
+
+def greedy(
+    p: np.ndarray,
+    b: np.ndarray,
+    budget: float,
+    value_batch_fn: Callable[[np.ndarray], np.ndarray],
+    empty_value: float,
+) -> Tuple[List[int], float]:
+    """GreedyLLM (Algorithm 1) on an arbitrary set function.
+
+    Each iteration evaluates *all* affordable candidates in one batched call
+    and adds the arm with the best marginal-gain / cost ratio; ties broken by
+    the p/b ratio (Alg. 1 line 4). Returns (chosen order, final value).
+    """
+    p = np.asarray(p, np.float64)
+    b = np.asarray(b, np.float64)
+    L = p.size
+    chosen: List[int] = []
+    chosen_mask = np.zeros(L, np.float32)
+    cand_buf = np.empty((L, L), np.float32)   # reused across rounds
+    in_pool = np.ones(L, bool)
+    spent = 0.0
+    current = float(empty_value)
+
+    while True:
+        afford = np.flatnonzero(in_pool & (b <= budget - spent + 1e-15))
+        if afford.size == 0:
+            break
+        cand = cand_buf[: afford.size]
+        cand[:] = chosen_mask
+        cand[np.arange(afford.size), afford] = 1.0
+        vals = np.asarray(value_batch_fn(cand), np.float64)
+        ratios = (vals - current) / b[afford]
+        best = float(np.max(ratios))
+        tied = np.flatnonzero(np.isclose(ratios, best, rtol=RATIO_TIE_RTOL, atol=1e-15))
+        if tied.size > 1:  # tie-break by success-prob / cost ratio
+            ti = int(tied[np.argmax(p[afford[tied]] / b[afford[tied]])])
+        else:
+            ti = int(tied[0])
+        pick = int(afford[ti])
+        chosen.append(pick)
+        chosen_mask[pick] = 1.0
+        in_pool[pick] = False
+        spent += b[pick]
+        current = float(vals[ti])                 # vals aligned with afford
+    return chosen, current
+
+
+def gamma_value_batch(p: np.ndarray) -> Callable[[np.ndarray], np.ndarray]:
+    """Batched closed-form gamma over candidate masks."""
+    log1m = np.log1p(-clip_probs(p))
+
+    def fn(masks: np.ndarray) -> np.ndarray:
+        return 1.0 - np.exp(masks @ log1m)
+
+    return fn
+
+
+def _greedy_gamma(
+    p: np.ndarray, b: np.ndarray, budget: float
+) -> Tuple[List[int], float]:
+    """Greedy-on-gamma (Alg. 1 on the closed-form gamma), serial plane.
+
+    Carries the chosen set's survival product ``q = prod(1 - p_l)``; each
+    round's candidate values are ``1 - q * m`` with ``m = exp(log1p(-p))``
+    computed once, so the loop body is pure IEEE-f64 multiply/subtract and
+    :func:`_sur_greedy_scan_core` runs the same statements on the device.
+    """
+    p = np.asarray(clip_probs(p), np.float64)
+    b = np.asarray(b, np.float64)
+    L = p.size
+    m = np.exp(np.log1p(-p))                  # per-arm survival factor
+    in_pool = np.ones(L, bool)
+    q = 1.0                                   # survival of the chosen set
+    spent = 0.0
+    current = 0.0                             # gamma(empty) = 0
+    chosen: List[int] = []
+    while True:
+        afford = in_pool & (b <= budget - spent + 1e-15)
+        if not afford.any():
+            break
+        vals = 1.0 - q * m                    # gamma(chosen ∪ {l}) for all l
+        ratios = np.where(afford, (vals - current) / b, -np.inf)
+        best = ratios.max()
+        tied = afford & (
+            (ratios == best)
+            | (np.abs(ratios - best) <= 1e-15 + RATIO_TIE_RTOL * abs(best))
+        )
+        pb = np.where(tied, p / b, -np.inf)
+        pick = int(np.argmax(pb))
+        chosen.append(pick)
+        in_pool[pick] = False
+        spent += float(b[pick])
+        current = float(vals[pick])
+        q = q * float(m[pick])
+    return chosen, current
+
+
+def _greedy_xi(
+    p: np.ndarray, b: np.ndarray, budget: float, est: GroupedXiEstimator,
+    group: int = 0,
+) -> Tuple[List[int], float, torch.Tensor, torch.Tensor]:
+    """Greedy-on-xi (Alg. 1 specialized to the CRN estimator), serial plane.
+
+    The chosen set's belief table lives on the estimator's device and is
+    carried across rounds in pick order; each round extends it by every
+    candidate arm in one :meth:`GroupedXiEstimator.marginal` evaluation,
+    whose (L,) values come to the host for the numpy round logic.
+    """
+    K = est.num_classes
+    L = int(p.size)
+    T = est.responses.shape[1]
+    resp = est.responses[group]
+    w32 = est.log_weights[group]
+    base_raw = torch.zeros((1, T, K), dtype=torch.float32, device=est.device)
+    base_cnt = torch.zeros((1, T, K), dtype=torch.int32, device=est.device)
+    in_pool = np.ones(L, bool)
+    spent = 0.0
+    current = 1.0 / K
+    chosen: List[int] = []
+    while True:
+        afford = in_pool & (b <= budget - spent + 1e-15)
+        if not afford.any():
+            break
+        vals = est.marginal(base_raw, base_cnt)[group].cpu().numpy()   # (L,) f64
+        ratios = np.where(afford, (vals - current) / b, -np.inf)
+        best = ratios.max()
+        tied = afford & (
+            (ratios == best)
+            | (np.abs(ratios - best) <= 1e-15 + RATIO_TIE_RTOL * abs(best))
+        )
+        pb = np.where(tied, p / b, -np.inf)
+        pick = int(np.argmax(pb))
+        chosen.append(pick)
+        in_pool[pick] = False
+        spent += float(b[pick])
+        current = float(vals[pick])
+        col = resp[:, pick].to(torch.int64)
+        rows = torch.nonzero(col >= 0)[:, 0]
+        base_raw[0, rows, col[rows]] += w32[pick]
+        base_cnt[0, rows, col[rows]] += 1
+    return chosen, current, base_raw, base_cnt
+
+
+def _assemble_result(
+    p: np.ndarray, b: np.ndarray, budget: float, l_star: int,
+    s1: Sequence[int], s2: Sequence[int], xi_vals: np.ndarray,
+) -> SelectionResult:
+    """Shared Alg. 2 epilogue: argmax of the three candidates + Theorem 3
+    diagnostics (used by both the serial and the batched plane)."""
+    cands = [
+        np.asarray([l_star]), np.asarray(s1, np.int64), np.asarray(s2, np.int64)
+    ]
+    pick = int(np.argmax(xi_vals))
+    chosen = cands[pick]
+    return SelectionResult(
+        chosen=chosen,
+        xi_est=float(xi_vals[pick]),
+        cost=float(b[chosen].sum()) if chosen.size else 0.0,
+        budget=budget,
+        s1=cands[1],
+        s2=cands[2],
+        l_star=l_star,
+        xi_s1=float(xi_vals[1]),
+        xi_s2=float(xi_vals[2]),
+        p_star=float(p[l_star]),
+        gamma_s2=gamma(p[np.asarray(s2, np.int64)]) if len(s2) else 0.0,
+    )
+
+
+def sur_greedy(
+    p: np.ndarray,
+    b: np.ndarray,
+    budget: float,
+    num_classes: int,
+    key: prng.Key,
+    theta: int,
+    p_all: Optional[np.ndarray] = None,
+    use_kernel: bool = False,
+    device="cuda",
+) -> SelectionResult:
+    """SurGreedyLLM (Algorithm 2) with CRN Monte-Carlo xi estimation.
+
+    The serial plane: one group, host-side greedy rounds, one device
+    evaluation per round on ``device``. Under ``use_kernel`` the three
+    candidates are scored by the ``mc_correctness_grouped`` kernel.
+    Returns the best of {best affordable single arm, greedy-on-xi,
+    greedy-on-gamma} together with the Theorem 3 diagnostics.
+    """
+    p = clip_probs(p)
+    b = np.asarray(b, np.float64)
+    K = int(num_classes)
+
+    afford = np.flatnonzero(b <= budget + 1e-15)
+    if afford.size == 0:
+        return SelectionResult(
+            chosen=np.zeros(0, np.int64), xi_est=1.0 / K, cost=0.0, budget=budget
+        )
+    est = GroupedXiEstimator(
+        key, p[None, :], K, np.asarray([theta]), p_all=p_all,
+        use_kernel=use_kernel, device=device,
+    )
+    l_star = int(afford[np.argmax(p[afford])])
+
+    s1, _, s1_raw, s1_cnt = _greedy_xi(p, b, budget, est)
+    s2, _ = _greedy_gamma(p, b, budget)
+
+    # Evaluate the three candidates with the *same* CRN draws.
+    xi_vals = est.final_xi([l_star], [s1], [s2], s1_raw, s1_cnt)[0].cpu().numpy()
+    return _assemble_result(p, b, budget, l_star, s1, s2, xi_vals)
+
+
+# ---------------------------------------------------------------------------
+# The batched planner: G (p-vector, budget) groups together
+# ---------------------------------------------------------------------------
+
+
+def _sur_greedy_scan_core(
+    resp_t: torch.Tensor,      # (G, L, T) int32, -1 past each group's theta
+    valid: torch.Tensor,       # (G, T) f32 0/1 draw mask
+    log_weights: torch.Tensor, # (G, L) f32
+    empty: torch.Tensor,       # (G,) f32
+    theta: torch.Tensor,       # (G,) f64
+    p: torch.Tensor,           # (G, L) f64 clipped success probs
+    b: torch.Tensor,           # (G, L) f64 pool costs
+    budgets: torch.Tensor,     # (G,) f64
+    m: torch.Tensor,           # (G, L) f64 survival factors exp(log1p(-p))
+    *,
+    num_classes: int,
+):
+    """The whole Alg. 2 planner for all G groups on the device.
+
+    Four phases, each statement mirroring the reference (and the serial
+    plane) one IEEE op at a time:
+
+    1. **greedy-on-xi** — a round loop evaluating every group's candidate
+       expansion (:func:`_marginal_xi_core`), then Alg. 1's round logic as
+       f64 elementwise ops;
+    2. **greedy-on-gamma** — the survival-product loop of
+       :func:`_greedy_gamma`;
+    3. **l*** — the best affordable single arm, a masked first-max argmax;
+    4. **candidate scoring** — the l*/s1/s2 belief tables (ascending arm
+       order for l* and s2) scored by :func:`_tables_xi_core`.
+
+    Groups whose affordable set empties freeze in place. The round loops
+    read one flag per round on the host (``alive.any()``). Returns
+    ``(picks (G, L) int32 in pick order (-1 pad), npick (G,), g_picks (G,
+    L), g_npick (G,), l_star (G,) int32, xi_vals (G, 3) f64)``.
+    """
+    G, L, T = resp_t.shape
+    K = num_classes
+    dev = resp_t.device
+    arange_l = torch.arange(L, dtype=torch.int32, device=dev)
+    arange_k = torch.arange(K, dtype=resp_t.dtype, device=dev)
+    neg_inf = torch.tensor(-np.inf, dtype=torch.float64, device=dev)
+
+    def _pick(afford, vals, current):
+        ratios = torch.where(afford, (vals - current[:, None]) / b, neg_inf)
+        best = ratios.max(dim=1).values
+        tied = afford & (
+            (ratios == best[:, None])
+            | ((ratios - best[:, None]).abs()
+               <= 1e-15 + RATIO_TIE_RTOL * best[:, None].abs())
+        )
+        pb = torch.where(tied, p / b, neg_inf)
+        return torch.argmax(pb, dim=1)                        # first max
+
+    def _take(x, idx):
+        return torch.gather(x, 1, idx[:, None])[:, 0]
+
+    # -- phase 1: greedy-on-xi --
+    in_pool = torch.ones((G, L), dtype=torch.bool, device=dev)
+    spent = torch.zeros(G, dtype=torch.float64, device=dev)
+    current = torch.full((G,), 1.0 / K, dtype=torch.float64, device=dev)
+    base_raw = torch.zeros((G, T, K), dtype=torch.float32, device=dev)
+    base_cnt = torch.zeros((G, T, K), dtype=torch.int32, device=dev)
+    picks = torch.full((G, L), -1, dtype=torch.int32, device=dev)
+    npick = torch.zeros(G, dtype=torch.int32, device=dev)
+    while True:
+        afford = in_pool & (b <= budgets[:, None] - spent[:, None] + 1e-15)
+        has = afford.any(dim=1)
+        if not bool(has.any()):
+            break
+        vals = _marginal_xi_core(
+            resp_t, base_raw, base_cnt, log_weights, empty, valid, theta, K,
+        )                                                     # (G, L) f64
+        pick = _pick(afford, vals, current)
+        upd = has[:, None] & (arange_l[None, :] == pick[:, None])
+        resp_pick = torch.gather(resp_t, 1, pick[:, None, None].expand(G, 1, T))[:, 0, :]
+        grow = has[:, None, None] & (resp_pick[..., None] == arange_k)
+        in_pool = in_pool & ~upd
+        spent = torch.where(has, spent + _take(b, pick), spent)
+        current = torch.where(has, _take(vals, pick), current)
+        base_raw = torch.where(grow, base_raw + _take(log_weights, pick)[:, None, None], base_raw)
+        base_cnt = base_cnt + grow.to(torch.int32)
+        picks = torch.where(
+            has[:, None] & (arange_l[None, :] == npick[:, None]),
+            pick[:, None].to(torch.int32), picks,
+        )
+        npick = npick + has.to(torch.int32)
+
+    # -- phase 2: greedy-on-gamma (mirrors `_greedy_gamma`) --
+    g_in_pool = torch.ones((G, L), dtype=torch.bool, device=dev)
+    g_spent = torch.zeros(G, dtype=torch.float64, device=dev)
+    g_current = torch.zeros(G, dtype=torch.float64, device=dev)
+    q = torch.ones(G, dtype=torch.float64, device=dev)
+    g_picks = torch.full((G, L), -1, dtype=torch.int32, device=dev)
+    g_npick = torch.zeros(G, dtype=torch.int32, device=dev)
+    while True:
+        afford = g_in_pool & (b <= budgets[:, None] - g_spent[:, None] + 1e-15)
+        has = afford.any(dim=1)
+        if not bool(has.any()):
+            break
+        vals = 1.0 - q[:, None] * m                           # (G, L) f64
+        pick = _pick(afford, vals, g_current)
+        upd = has[:, None] & (arange_l[None, :] == pick[:, None])
+        g_in_pool = g_in_pool & ~upd
+        g_spent = torch.where(has, g_spent + _take(b, pick), g_spent)
+        g_current = torch.where(has, _take(vals, pick), g_current)
+        q = torch.where(has, q * _take(m, pick), q)
+        g_picks = torch.where(
+            has[:, None] & (arange_l[None, :] == g_npick[:, None]),
+            pick[:, None].to(torch.int32), g_picks,
+        )
+        g_npick = g_npick + has.to(torch.int32)
+
+    # -- phase 3: l* — first-max argmax over the affordable arms --
+    afford0 = b <= budgets[:, None] + 1e-15
+    l_star = torch.argmax(torch.where(afford0, p, neg_inf), dim=1)
+
+    # -- phase 4: candidate scoring; l* and s2 tables folded in ascending
+    # arm order, one f32 add per draw per arm --
+    resp_l = torch.gather(resp_t, 1, l_star[:, None, None].expand(G, 1, T))[:, 0, :]
+    w_l = _take(log_weights, l_star)
+    oh_l = resp_l[..., None] == arange_k                      # (G, T, K)
+    raw_star = torch.where(oh_l, w_l[:, None, None], torch.zeros((), dtype=torch.float32, device=dev))
+    cnt_star = oh_l.to(torch.int32)
+    chosen2 = ~g_in_pool                                      # the s2 set
+    raw_s2 = torch.zeros((G, T, K), dtype=torch.float32, device=dev)
+    cnt_s2 = torch.zeros((G, T, K), dtype=torch.int32, device=dev)
+    for l in range(L):
+        add = chosen2[:, l][:, None, None] & (resp_t[:, l][..., None] == arange_k)
+        raw_s2 = torch.where(add, raw_s2 + log_weights[:, l][:, None, None], raw_s2)
+        cnt_s2 = cnt_s2 + add.to(torch.int32)
+    raw3 = torch.stack([raw_star, base_raw, raw_s2], dim=1)
+    cnt3 = torch.stack([cnt_star, base_cnt, cnt_s2], dim=1)
+    xi_vals = _tables_xi_core(raw3, cnt3, empty, valid, theta, K)
+    return picks, npick, g_picks, g_npick, l_star.to(torch.int32), xi_vals
+
+
+def _stage_groups(est: GroupedXiEstimator, b: np.ndarray, budgets_live: np.ndarray):
+    """The planner's device tables for the estimator's groups:
+    ``(resp_t, valid, w, empty, theta, p, b, budgets, m)``. The gamma
+    survival factors are the host values ``exp(log1p(-p))`` that
+    :func:`_greedy_gamma` precomputes serially."""
+    dev = est.device
+    G, L = est.ps.shape
+    f64 = lambda x: torch.as_tensor(np.array(x, np.float64), device=dev)
+    return (
+        est.responses_t, est.valid, est.log_weights, est.empty, est.theta_f,
+        f64(est.ps), f64(np.broadcast_to(b, (G, L))), f64(budgets_live),
+        f64(np.exp(np.log1p(-est.ps))),
+    )
+
+
+def _live_split(ps, b, budgets, K):
+    """Serial early-return for groups that afford nothing; the rest plan."""
+    G = ps.shape[0]
+    results: List[Optional[SelectionResult]] = [None] * G
+    live: List[int] = []
+    for g in range(G):
+        if (b <= budgets[g] + 1e-15).any():
+            live.append(g)
+        else:
+            results[g] = SelectionResult(
+                chosen=np.zeros(0, np.int64), xi_est=1.0 / K, cost=0.0,
+                budget=float(budgets[g]),
+            )
+    return results, live
+
+
+def sur_greedy_many(
+    ps: np.ndarray,
+    b: np.ndarray,
+    budgets: np.ndarray,
+    num_classes: int,
+    key: prng.Key,
+    thetas,
+    use_kernel: bool = False,
+    device="cuda",
+) -> List[SelectionResult]:
+    """SurGreedyLLM over G stacked (p-vector, budget) groups — the batched
+    planner plane.
+
+    One :class:`GroupedXiEstimator` shares the CRN draws and one
+    :func:`_sur_greedy_scan_core` call on ``device`` runs every group's
+    greedy-on-xi, greedy-on-gamma, best single arm and candidate scoring.
+    Under the same ``key`` the results bit-match ``[sur_greedy(ps[g], b,
+    budgets[g], ...) for g]``.
+
+    Args:
+      ps: (G, L) per-group success probabilities.
+      b: (L,) shared pool costs.
+      budgets: (G,) per-group budgets.
+      thetas: scalar or (G,) Monte-Carlo sample counts.
+    """
+    ps = clip_probs(np.atleast_2d(np.asarray(ps, np.float64)))
+    G, L = ps.shape
+    b = np.asarray(b, np.float64)
+    budgets = np.broadcast_to(np.asarray(budgets, np.float64), (G,))
+    thetas = np.broadcast_to(np.asarray(thetas, np.int64), (G,))
+    K = int(num_classes)
+
+    results, live = _live_split(ps, b, budgets, K)
+    if not live:
+        return results
+
+    est = GroupedXiEstimator(
+        key, ps[live], K, thetas[live], use_kernel=use_kernel, device=device,
+    )
+    out = _sur_greedy_scan_core(*_stage_groups(est, b, budgets[live]), num_classes=K)
+    picks, npick, g_picks, g_npick, l_star, xi_vals = (o.cpu().numpy() for o in out)
+
+    for i, g in enumerate(live):
+        s1 = [int(a) for a in picks[i, : npick[i]]]
+        s2 = [int(a) for a in g_picks[i, : g_npick[i]]]
+        results[g] = _assemble_result(
+            est.ps[i], b, float(budgets[g]), int(l_star[i]), s1, s2,
+            xi_vals[i],
+        )
+    return results
+
+
+def adaptive_invoke(
+    selection: Sequence[int],
+    p: np.ndarray,
+    num_classes: int,
+    invoke_fn: Callable[[int], int],
+    p_all: Optional[np.ndarray] = None,
+    rng: Optional[np.random.Generator] = None,
+    costs: Optional[np.ndarray] = None,
+) -> InvocationResult:
+    """Adaptive invocation (Algorithm 3 lines 3-11).
+
+    Invokes arms of ``selection`` in decreasing-p order and early-stops when
+    the residual potential belief F(T*) can no longer change the prediction:
+    ``F(T*) * H2(phi) <= H1(phi)`` (Prop. 4 guarantees prediction equality
+    with the full set).
+
+    Args:
+      invoke_fn: ``arm_index -> class_id`` — runs the real model (or oracle).
+    """
+    p = clip_probs(p)
+    K = int(num_classes)
+    w = log_weight(p, K)
+    empty = empty_log_belief(p if p_all is None else p_all)
+    sel = sorted(selection, key=lambda i: -p[i])
+    remaining = list(sel)
+
+    used: List[int] = []
+    responses: List[int] = []
+    beliefs = np.full(K, empty, np.float64)
+    counts = np.zeros(K, np.int64)
+
+    while remaining:
+        log_f = float(np.sum(w[remaining]))
+        h1, h2, _ = top2_beliefs(beliefs)
+        if not (log_f + h2 > h1 - STOP_MARGIN):
+            break  # residual arms cannot flip the prediction (Prop. 4)
+        arm = remaining.pop(0)
+        r = int(invoke_fn(arm))
+        used.append(arm)
+        responses.append(r)
+        if counts[r] == 0:
+            beliefs[r] = w[arm]
+        else:
+            beliefs[r] += w[arm]
+        counts[r] += 1
+
+    pred, _ = predict_from_beliefs(beliefs, rng)
+    cost_vec = np.asarray(costs, np.float64) if costs is not None else np.zeros(p.size)
+    return InvocationResult(
+        prediction=int(pred),
+        used=np.asarray(used, np.int64),
+        responses=np.asarray(responses, np.int64),
+        cost=float(cost_vec[used].sum()) if used else 0.0,
+        planned_cost=float(cost_vec[list(sel)].sum()) if len(sel) else 0.0,
+        log_beliefs=beliefs,
+    )
+
+
+@dataclasses.dataclass
+class ThriftLLM:
+    """End-to-end selector (Algorithm 3): SurGreedy selection + adaptive
+    invocation, parameterized by the paper's (eps, delta).
+
+    One instance is bound to a pool (costs) and reused across query classes;
+    per-class selections are cached because selection depends only on
+    (p-vector, K, budget). Planning runs on ``device``.
+    """
+
+    costs: np.ndarray
+    eps: float = 0.1
+    delta: float = 0.01
+    seed: int = 0
+    use_kernel: bool = False
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self.costs = np.asarray(self.costs, np.float64)
+        self._cache: dict = {}
+
+    def rebind_costs(self, costs: np.ndarray) -> None:
+        """Swap in a new pool cost vector and drop every cached selection."""
+        self.costs = np.asarray(costs, np.float64)
+        self._cache.clear()
+
+    def trim_cache(self, max_entries: int) -> int:
+        """Drop the oldest cached selections beyond ``max_entries``;
+        returns the number of entries dropped."""
+        drop = len(self._cache) - int(max_entries)
+        if drop <= 0:
+            return 0
+        for key in list(self._cache)[:drop]:
+            del self._cache[key]
+        return drop
+
+    def theta(self, p: np.ndarray, budget: float) -> int:
+        afford = np.flatnonzero(self.costs <= budget + 1e-15)
+        p_star = float(np.max(clip_probs(p)[afford])) if afford.size else 1.0
+        return theta_for(self.eps, self.delta, p_star, len(self.costs))
+
+    @staticmethod
+    def _memo_key(p: np.ndarray, num_classes: int, budget: float):
+        return (
+            np.round(np.asarray(p, np.float64), 12).tobytes(), num_classes,
+            budget,
+        )
+
+    def select(self, p: np.ndarray, num_classes: int, budget: float) -> SelectionResult:
+        key_tuple = self._memo_key(p, num_classes, budget)
+        if key_tuple in self._cache:
+            return self._cache[key_tuple]
+        res = sur_greedy(
+            p,
+            self.costs,
+            budget,
+            num_classes,
+            prng.key(self.seed, self.device),
+            self.theta(p, budget),
+            use_kernel=self.use_kernel,
+            device=self.device,
+        )
+        self._cache[key_tuple] = res
+        return res
+
+    def select_many(
+        self,
+        ps: np.ndarray,
+        num_classes: int,
+        budgets,
+        max_group: int = 64,
+    ) -> List[SelectionResult]:
+        """Batched :meth:`select` over stacked (p-vector, budget) pairs.
+
+        Cached pairs are returned as-is; the misses are planned by
+        :func:`sur_greedy_many` (chunked at ``max_group`` groups to bound
+        peak memory) and memoized under the serial keys.
+        """
+        ps = np.atleast_2d(np.asarray(ps, np.float64))
+        G = ps.shape[0]
+        budgets = np.broadcast_to(np.asarray(budgets, np.float64), (G,))
+        keys = [
+            self._memo_key(ps[g], num_classes, float(budgets[g]))
+            for g in range(G)
+        ]
+        miss: List[int] = []
+        seen = set()
+        for g, k in enumerate(keys):
+            if k not in self._cache and k not in seen:
+                miss.append(g)
+                seen.add(k)
+        for s in range(0, len(miss), max_group):
+            chunk = miss[s:s + max_group]
+            thetas = np.asarray(
+                [self.theta(ps[g], float(budgets[g])) for g in chunk], np.int64
+            )
+            res = sur_greedy_many(
+                ps[chunk],
+                self.costs,
+                budgets[chunk],
+                num_classes,
+                prng.key(self.seed, self.device),
+                thetas,
+                use_kernel=self.use_kernel,
+                device=self.device,
+            )
+            for g, r in zip(chunk, res):
+                self._cache[keys[g]] = r
+        return [self._cache[k] for k in keys]
+
+    def answer(
+        self,
+        p: np.ndarray,
+        num_classes: int,
+        budget: float,
+        invoke_fn: Callable[[int], int],
+        rng: Optional[np.random.Generator] = None,
+    ) -> InvocationResult:
+        sel = self.select(p, num_classes, budget)
+        return adaptive_invoke(
+            list(sel.chosen), p, num_classes, invoke_fn, rng=rng, costs=self.costs
+        )

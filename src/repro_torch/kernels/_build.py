@@ -1,0 +1,107 @@
+"""Builds the port's CUDA kernels at first use and loads them with ctypes.
+
+Each source in ``src/repro_torch/csrc/`` has a plain C entry point that
+launches its kernel on a given stream and returns ``cudaGetLastError()``.
+:func:`build` compiles every source with ``nvcc`` into its own shared
+library under ``build/repro_torch_kernels/`` at the repository root — one
+``nvcc`` per source, all started together — named by a hash of the source
+and the flags, so an edited source rebuilds and an unchanged one is reused.
+Nothing is built when a module is imported: only the first launch on a
+CUDA tensor (or an explicit :func:`build`) calls the compiler.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# entry point -> ctypes argument types (pointers and the stream as c_void_p)
+KERNELS = {
+    "belief_aggregate": (
+        "belief_aggregate_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    ),
+    "mc_correctness_grouped": (
+        "mc_correctness_grouped_launch",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+}
+
+_LOADED: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on the PATH, or
+    the toolkit's default install location."""
+    home = os.environ.get("CUDA_HOME")
+    for cand in (
+        os.path.join(home, "bin", "nvcc") if home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build() -> Dict[str, Path]:
+    """Compile every kernel that has no up-to-date library yet, in parallel.
+    Returns ``{kernel name: library path}``; raises with the compiler's
+    output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in KERNELS}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = nvcc_path()
+    procs = {}
+    for name, path in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, todo[name])    # atomic: a reader never sees half a file
+        else:
+            os.unlink(tmp)
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def entry(name: str):
+    """The ctypes entry point of kernel ``name``, building it on first use."""
+    fn = _LOADED.get(name)
+    if fn is None:
+        lib = ctypes.CDLL(str(build()[name]))
+        symbol, argtypes = KERNELS[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LOADED[name] = fn
+    return fn

@@ -1,0 +1,70 @@
+"""Dispatching wrappers for the port's kernels, with launch counters.
+
+For a tensor on the CPU each wrapper computes the kernel's plain PyTorch
+version (:mod:`repro_torch.kernels.ref`). For a CUDA tensor it launches the
+hand-written CUDA kernel, building it on first use, or raises: there is no
+fallback from the card to the plain version. ``<wrapper>.launches`` counts
+the kernel launches, and nothing else increments it.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import belief_aggregate as _belief_aggregate
+from . import mc_correctness as _mc_correctness
+from . import ref
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"kernels run on cpu (plain version) or cuda, not {kind}")
+    return kind
+
+
+def belief_aggregate(responses, log_weights, empty_belief, num_classes: int):
+    """Batched router aggregation: ``(log_beliefs (B, K) f32, predictions
+    (B,) int32)``. ``log_weights`` may be (B, M) or (M,), ``empty_belief``
+    a scalar or (B,); responses of -1 mark arms not invoked."""
+    if _device_kind(responses) == "cpu":
+        return ref.belief_aggregate_ref(responses, log_weights, empty_belief, num_classes)
+    B, M = responses.shape
+    dev = responses.device
+    w = torch.as_tensor(log_weights, dtype=torch.float32, device=dev).expand(B, M)
+    empty = torch.as_tensor(empty_belief, dtype=torch.float32, device=dev).expand(B)
+    out = _belief_aggregate.launch(
+        responses.to(torch.int32).contiguous(), w.contiguous(), empty.contiguous(),
+        num_classes,
+    )
+    belief_aggregate.launches += 1
+    return out
+
+
+belief_aggregate.launches = 0
+
+
+def mc_correctness_grouped(responses, masks, log_weights, empty_belief,
+                           valid, theta, num_classes: int):
+    """(G, C) f32 xi estimates over the planner's stacked (G, theta, L)
+    draws; ragged thetas are carried by the ``valid`` mask."""
+    if _device_kind(responses) == "cpu":
+        return ref.mc_correctness_grouped_ref(
+            responses, masks, log_weights, empty_belief, valid, theta, num_classes,
+        )
+    dev = responses.device
+    f32 = lambda t: torch.as_tensor(t, dtype=torch.float32, device=dev).contiguous()
+    out = _mc_correctness.launch_grouped(
+        responses.to(torch.int32).contiguous(), f32(masks), f32(log_weights),
+        f32(empty_belief), f32(valid), f32(theta), num_classes,
+    )
+    mc_correctness_grouped.launches += 1
+    return out
+
+
+mc_correctness_grouped.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    belief_aggregate.launches = 0
+    mc_correctness_grouped.launches = 0

@@ -10,3 +10,11 @@ trace).
 from repro.analysis import install_tracer_guard
 
 TRACER_GUARD_INSTALLED = install_tracer_guard()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (a hand-written kernel has no CPU mode); "
+        "skips with a reason where there is none",
+    )
