@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
+TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
+and ``torch.backends.cudnn.allow_tf32``): f32 results are compared below.
+
 Phases:
 
 1. report — the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build — compile every CUDA kernel of ``src/repro_torch/csrc`` (timed as
-   set-up);
-3. kernels vs plain — each kernel against its plain PyTorch version on the
-   same CUDA tensors: ``belief_aggregate`` at (130, 12, 77) and at the
-   router's prefix-expanded shape for K=4 and K=77 (beliefs to 1e-6,
+2. build — compile every CUDA kernel of ``src/repro_torch/csrc`` (five, one
+   ``nvcc`` each, all started together; timed as set-up);
+3. kernels vs plain — each router kernel against its plain PyTorch version
+   on the same CUDA tensors: ``belief_aggregate`` at (130, 12, 77) and at
+   the router's prefix-expanded shape for K=4 and K=77 (beliefs to 1e-6,
    predictions exact); ``mc_correctness_grouped`` at planner shapes
    (G in {1, 8}, C=3, T=16384, L=12, K in {4, 77}) to 2e-6;
 4. route — the serve defaults (12 arms, K=4, 6 clusters, history 2000,
@@ -22,22 +25,45 @@ Phases:
    kernel planes to equal plans, predictions and stop waves, beliefs within
    1e-6 and candidate xi within 2e-6;
 5. K=77 — one batch over a 77-class label space with ``use_kernel=True``;
-6. launches — both kernels' launch counters, zeroed just before phase 4,
-   must be above 0 after phase 5; then one route of 64 is timed cold and
-   warm on the card, and each kernel is checked against its plain version
-   and timed at the shape the main path gave it.
+6. launches — both router kernels' launch counters, zeroed just before
+   phase 4, must be above 0 after phase 5; then one route of 64 is timed
+   cold and warm on the card, and each kernel is checked against its plain
+   version and timed at the shape the main path gave it;
+7. model kernels vs plain — ``flash_attention`` at the two LM arms' shapes
+   in bf16 (2e-2) and in f32 with and without windows, hd 64 and 256
+   (2e-5); ``rglru_scan`` at (64, 127, 4096) and (3, 37, 200) (1e-5);
+   ``mamba_scan`` at (64, 127, 8192, 16) and (2, 37, 96, 8) (3e-4), all
+   with nonzero initial states;
+8. models — smollm-135m, recurrentgemma-9b and falcon-mamba-7b at full
+   width in f32, cut to one pattern unit of depth (1, 3 and 1 layers) so
+   the CPU side takes seconds: the same weights forward on the card and on
+   the CPU, logits within 1e-3;
+9. LM-arm route — the three models at full width and depth in bf16 as
+   ``LMArm``s (seeded init on the card) over ``make_token_task(K=4,
+   seq_len=128, vocab=512)``: calibrate on 256 history queries, route a
+   uniform-budget and a mixed-budget batch of 64 through
+   ``ThriftRouter(use_kernel=True)``. The kernels' launch counters, zeroed
+   before this phase, are read after the two routes and ``flash_attention``,
+   ``rglru_scan``, ``mamba_scan`` and ``belief_aggregate`` must each be
+   above 0; costs stay within budget, a second route of each batch repeats
+   the first, and the plans equal those of a router planning on the CPU;
+10. timing — each model kernel at the LM-arm route's shapes.
 
 Two lines before the last is a JSON object listing every kernel with its
-launches, error, bound and times — ``ms``/``plain_ms`` are device time per
-call from a ``torch.profiler`` trace, ``call_ms``/``plain_call_ms`` the
-CUDA-event wall time per call, host dispatch included; the line before the
-last is the card's name and power limit; the last line is
+launches, error, bound and times — ``ms``/``plain_ms``/``library_ms`` are
+device time per call from a ``torch.profiler`` trace, ``call_ms`` the
+CUDA-event wall time per call, host dispatch included; a router kernel's
+``launches`` count phases 4-5 and its ``lm_route_launches`` phase 9, a
+model kernel's ``launches`` phase 9; ``flash_attention`` is listed at the
+recurrentgemma shape with both path shapes under ``by_shape``. The line
+before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero; without a CUDA device, or without the repository's
 ``src/repro_torch`` beside it, it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -50,8 +76,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12            # H100 SXM f32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
 BELIEF_ATOL = 1e-6
 XI_ATOL = 2e-6
+FLASH_BF16_ATOL = 2e-2           # one bf16 rounding of the output (tests/test_kernels.py)
+FLASH_F32_ATOL = 2e-5
+RGLRU_ATOL = 1e-5
+MAMBA_ATOL = 3e-4
+LOGITS_ATOL = 1e-3               # f32 logits, card vs CPU: sums in other orders only
+ARCHS = ("smollm-135m", "recurrentgemma-9b", "falcon-mamba-7b")
 
 
 def log(msg: str) -> None:
@@ -77,6 +110,17 @@ def median_ms(fn, reps: int = 7, inner: int = 20) -> float:
     return float(np.median(times))
 
 
+def device_events(prof):
+    """The device-side rows of a ``torch.profiler`` trace. A CPU op's row
+    carries the device time of the kernels it launched and each kernel has
+    a row of its own, so summing every row counts a torch op's kernels
+    twice; the kernel rows alone count each launch once."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+
+
 def device_ms(fn, n: int = 20):
     """Device time per call of ``fn``: the summed device time of every kernel
     it launches, from a ``torch.profiler`` trace of ``n`` calls. Returns
@@ -90,10 +134,7 @@ def device_ms(fn, n: int = 20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(
-        getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        for e in prof.key_averages()
-    )
+    us = sum(e.self_device_time_total for e in device_events(prof))
     if us > 0:
         return us / n / 1e3, "profiler"
     return median_ms(fn), "events"
@@ -157,9 +198,11 @@ def mc_bound(args, K):
     return nbytes, ops
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, ops_per_s=F32_OPS_PER_S):
+    """The least time for the work: bytes at the memory rate or operations
+    at ``ops_per_s`` (the inputs' type), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -373,6 +416,336 @@ def route_times(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 7-10: the LM arms — kernels, models card vs CPU, the LM-arm route
+# ---------------------------------------------------------------------------
+
+
+def _randn(shape, gen, dev, scale=1.0):
+    return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+
+def flash_inputs(B, S, H, G, hd, dtype, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(_randn(s, gen, dev).to(dtype) for s in ((B, S, H, hd), (B, S, G, hd), (B, S, G, hd)))
+
+
+def rglru_inputs(B, S, D, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (_randn((B, S, D), gen, dev, 0.5).abs_().neg_(), _randn((B, S, D), gen, dev),
+            _randn((B, D), gen, dev))
+
+
+def mamba_inputs(B, S, Din, N, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (_randn((B, S, Din), gen, dev), _randn((B, S, Din), gen, dev, 0.3).abs_().add_(0.01),
+            _randn((Din, N), gen, dev, 0.5).abs_().add_(0.5).neg_(), _randn((B, S, N), gen, dev),
+            _randn((B, S, N), gen, dev), _randn((Din,), gen, dev), _randn((B, Din, N), gen, dev))
+
+
+# (label, B, S, H, G, hd, window, dtype, atol): the two path shapes in bf16,
+# then f32 with and without windows, at hd 64 and 256
+FLASH_CASES = (
+    ("smollm path", 64, 127, 9, 3, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("recurrentgemma path", 64, 127, 16, 1, 256, 2048, torch.bfloat16, FLASH_BF16_ATOL),
+    ("f32", 2, 127, 4, 2, 64, 0, torch.float32, FLASH_F32_ATOL),
+    ("f32", 2, 127, 4, 2, 64, 48, torch.float32, FLASH_F32_ATOL),
+    ("f32", 1, 300, 16, 1, 256, 64, torch.float32, FLASH_F32_ATOL),
+)
+RGLRU_CASES = ((64, 127, 4096), (3, 37, 200))
+MAMBA_CASES = ((64, 127, 8192, 16), (2, 37, 96, 8))
+
+
+def output_error(name: str, got, want, atol: float, label: str) -> float:
+    """Max abs error over a kernel's outputs against its plain version's;
+    raises past ``atol`` or on a non-finite output."""
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    log(f"  {name} {label}: max_abs_err={err:.3g}")
+    if not (finite and err <= atol):
+        raise AssertionError(f"{name} disagrees with its plain version at {label}: "
+                             f"err {err} (atol {atol}), finite={finite}")
+    return err
+
+
+def check_model_kernels(dev) -> dict:
+    from repro_torch.kernels import ops, ref
+
+    errs = {"flash_attention": 0.0, "rglru_scan": 0.0, "mamba_scan": 0.0}
+    for i, (label, B, S, H, G, hd, w, dtype, atol) in enumerate(FLASH_CASES):
+        args = flash_inputs(B, S, H, G, hd, dtype, seed=10 + i, dev=dev)
+        err = output_error("flash_attention", ops.flash_attention(*args, window=w),
+                           ref.flash_attention_ref(*args, window=w), atol,
+                           f"{label} B={B} S={S} H={H} G={G} hd={hd} window={w} {str(dtype)[6:]}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+    for i, (B, S, D) in enumerate(RGLRU_CASES):
+        args = rglru_inputs(B, S, D, seed=20 + i, dev=dev)
+        err = output_error("rglru_scan", ops.rglru_scan(*args), ref.rglru_scan_ref(*args),
+                           RGLRU_ATOL, f"B={B} S={S} D={D}")
+        errs["rglru_scan"] = max(errs["rglru_scan"], err)
+    for i, (B, S, Din, N) in enumerate(MAMBA_CASES):
+        args = mamba_inputs(B, S, Din, N, seed=30 + i, dev=dev)
+        err = output_error("mamba_scan", ops.mamba_scan(*args), ref.mamba_scan_ref(*args),
+                           MAMBA_ATOL, f"B={B} S={S} Din={Din} N={N}")
+        errs["mamba_scan"] = max(errs["mamba_scan"], err)
+    return errs
+
+
+def unit_config(arch: str):
+    """The published config in f32, cut to one pattern unit of depth (width
+    untouched) so that its CPU forward takes seconds."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=len(cfg.block_pattern), dtype="float32")
+
+
+def model_phase(dev) -> dict:
+    """Each family's one-unit f32 model: the same weights forward on the
+    card (the kernels) and on the CPU (their plain versions)."""
+    from repro_torch.models import LM
+
+    errs = {}
+    for i, arch in enumerate(ARCHS):
+        cfg = unit_config(arch)
+        t0 = time.perf_counter()
+        model = LM(cfg, device=dev, seed=7 + i)
+        tokens = torch.as_tensor(np.random.default_rng(i).integers(0, cfg.vocab_size, (2, 127)))
+        with torch.inference_mode():
+            got = model(tokens.to(dev)).cpu()
+            model.to("cpu")                          # the same weights, on the CPU
+            want = model(tokens)
+        err = float((got - want).abs().max())
+        ok = bool(torch.isfinite(got).all()) and got.shape == (2, 127, want.shape[-1])
+        log(f"  {arch} {cfg.layer_types} f32: logits {tuple(got.shape)} card vs cpu "
+            f"max_abs_err={err:.3g} (|logit| <= {float(want.abs().max()):.3g}) "
+            f"in {time.perf_counter() - t0:.1f} s")
+        if not (ok and err <= LOGITS_ATOL):
+            raise AssertionError(f"{arch}: card logits differ from the CPU's by {err} "
+                                 f"(atol {LOGITS_ATOL}), finite/shape ok={ok}")
+        errs[arch] = err
+        del model
+    torch.cuda.empty_cache()
+    return errs
+
+
+def token_embed(tokens, vocab: int) -> np.ndarray:
+    """The bincount query embedding of ``examples/train_and_serve.py``."""
+    return np.stack([np.bincount(t, minlength=vocab) for t in tokens]).astype(float)
+
+
+def lm_route_phase(dev) -> dict:
+    """Three full-width bf16 arms on the card, calibrated on a 256-query
+    history and routed over two 64-query batches with ``use_kernel=True``.
+    The launch counters are zeroed before and read after calibration and the
+    two routes; the checks that follow run after the read.
+
+    Arms with random weights answer at chance (1/K), where SurGreedy's plan
+    stops before its first wave and no arm would run inside a route. So the
+    calibration table scores each arm against the arms' own answers in turn
+    (history query i takes arm i mod 3's answer): every arm calibrates above
+    chance and the routes invoke arms wave by wave. Accuracy against the
+    task's labels is printed beside it (near 1/K: a smoke, not a quality
+    check)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.estimation import SuccessProbEstimator
+    from repro_torch.data import make_token_task
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.serving import LMArm, PoolEngine, ThriftRouter
+
+    K, SEQ, VOCAB, N_HIST = 4, 128, 512, 256
+    t0 = time.perf_counter()
+    cls_ids = make_token_task(K, SEQ, VOCAB, n=1, seed=0)["class_token_ids"]
+    arms = [LMArm(arch, LM(get_config(arch), device=dev, seed=100 + i), cls_ids,
+                  tokens_per_query=SEQ) for i, arch in enumerate(ARCHS)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"  init: {sum(p.numel() for a in arms for p in a.model.parameters()) / 1e9:.2f} B "
+        f"bf16 params on the card in {init_s:.1f} s; prices "
+        + ", ".join(f"{a.name} {a.cost:.3e}" for a in arms))
+    hist = make_token_task(K, SEQ, VOCAB, n=N_HIST, seed=1)
+    test = make_token_task(K, SEQ, VOCAB, n=128, seed=2)
+    emb = token_embed(hist["tokens"], VOCAB)
+    assign = np.zeros(N_HIST, np.int64)
+    costs = np.array([a.cost for a in arms])
+    rng = np.random.default_rng(5)
+    work = [
+        (test["tokens"][:64], token_embed(test["tokens"][:64], VOCAB), float(costs.sum())),
+        (test["tokens"][64:], token_embed(test["tokens"][64:], VOCAB),
+         rng.choice(np.linspace(costs.min(), costs.sum(), 4), size=64)),
+    ]
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = np.zeros((N_HIST, len(arms)), np.int64)
+    fwd_ms = {}
+    for a, arm in enumerate(arms):
+        times = []
+        for lo in range(0, N_HIST, 64):
+            t1 = time.perf_counter()
+            answers[lo:lo + 64, a] = arm.classify_batch(hist["tokens"][lo:lo + 64])  # ends in a sync
+            times.append((time.perf_counter() - t1) * 1e3)
+        fwd_ms[arm.name] = float(np.median(times[1:]))
+    rows = np.arange(N_HIST)
+    table = (answers == answers[rows, rows % len(arms)][:, None]).astype(np.float64)
+    router = ThriftRouter(PoolEngine(arms), SuccessProbEstimator(table, emb, assign), K,
+                          use_kernel=True, device=dev)
+    results = [router.route_batch(q, e, b) for q, e, b in work]
+    torch.cuda.synchronize()
+    launches = {
+        "flash_attention": ops.flash_attention.launches, "rglru_scan": ops.rglru_scan.launches,
+        "mamba_scan": ops.mamba_scan.launches, "belief_aggregate": ops.belief_aggregate.launches,
+        "mc_correctness_grouped": ops.mc_correctness_grouped.launches,
+    }
+    main_s = time.perf_counter() - t0
+    log(f"  calibrate (256 queries x 3 arms) + 2 routes of 64 in {main_s:.1f} s; "
+        f"launches {launches}")
+    for name in ("flash_attention", "rglru_scan", "mamba_scan", "belief_aggregate"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched on the LM-arm route")
+    for a, arm in enumerate(arms):
+        log(f"  {arm.name}: history accuracy {np.mean(answers[:, a] == hist['labels']):.3f} "
+            f"(K={K}, random weights), calibrated p {table[:, a].mean():.3f}, "
+            f"forward of 64 queries {fwd_ms[arm.name]:.1f} ms (median of 3)")
+    if sum(int(r.arm_query_counts.sum()) for r in results) == 0:
+        raise AssertionError("the LM-arm routes invoked no arm")
+    for i, ((q, e, b), res) in enumerate(zip(work, results)):
+        labels = test["labels"][64 * i:64 * (i + 1)]
+        if not (np.all(res.costs <= np.asarray(b) + 1e-15)
+                and np.all((res.predictions >= 0) & (res.predictions < K))
+                and np.all(np.isfinite(res.beliefs))):
+            raise AssertionError(f"LM batch {i}: cost over budget or malformed output")
+        log(f"  batch {i} ({'uniform' if i == 0 else 'mixed'} budget): accuracy "
+            f"{np.mean(res.predictions == labels):.3f}, served per arm "
+            f"{res.arm_query_counts.tolist()}, mean cost {res.costs.mean():.3e}, waves {res.waves}")
+    # the same batches again on the card, and on a router that plans on the CPU
+    cpu_router = ThriftRouter(PoolEngine(arms), SuccessProbEstimator(table, emb, assign), K,
+                              use_kernel=True, device="cpu")
+    for i, ((q, e, b), res) in enumerate(zip(work, results)):
+        again = router.route_batch(q, e, b)
+        cpu_router.route_batch(q, e, b)
+        if not (np.array_equal(again.predictions, res.predictions)
+                and np.array_equal(again.costs, res.costs)):
+            raise AssertionError(f"LM batch {i}: routing it twice gave different answers")
+    compare_plans(router, cpu_router, exact=False)
+    log(f"  routes repeat exactly; {len(router.selector._cache)} plans equal the CPU planner's "
+        f"(sets bitwise, xi within {XI_ATOL})")
+    breakdown = {arm.name: forward_breakdown(arm, work[0][0]) for arm in arms}
+    for name, b in breakdown.items():
+        log(f"  {name} forward breakdown: " + ", ".join(f"{k} {v:.3f}" for k, v in b.items()))
+    del arms, router, cpu_router
+    torch.cuda.empty_cache()
+    return {"launches": launches, "forward_ms": fwd_ms, "init_s": init_s, "main_s": main_s,
+            "breakdown": breakdown}
+
+
+MODEL_KERNELS = ("flash_attention", "rglru_scan", "mamba_scan")
+GEMM_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "cublas")
+
+
+def forward_breakdown(arm, tokens) -> dict:
+    """Where one 64-query forward of ``arm`` spends its time: host-clock wall
+    ms of a ``classify_batch`` (which ends in copying its answers to the
+    host) under ``torch.profiler``, the device time of its kernels split
+    into the model kernels, cuBLAS matmuls and everything else, and the
+    device's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    arm.classify_batch(tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        arm.classify_batch(tokens)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    parts = dict.fromkeys([*MODEL_KERNELS, "matmul", "other"], 0.0)
+    for e in device_events(prof):
+        cat = next((k for k in MODEL_KERNELS if f"{k}_kernel" in e.key), None)
+        if cat is None:
+            cat = "matmul" if any(m in e.key.lower() for m in GEMM_MARKS) else "other"
+        parts[cat] += e.self_device_time_total / 1e3
+    busy = sum(parts.values())
+    return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            **{f"{k}_ms": v for k, v in parts.items()}}
+
+
+def flash_bound(q, k, window: int):
+    """(bytes, operations) of one causal attention launch: q, k, v read once
+    and out written once; 4 hd flops per visible (query, key) pair."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(S, np.int64)
+    pairs = int((np.minimum(i + 1, T) - lo).clip(min=0).sum())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return nbytes, 4.0 * hd * pairs * B * H
+
+
+def sdpa_ms(q, k, v):
+    """The yardstick: one ``scaled_dot_product_attention`` call on the same
+    tensors (causal, GQA); timed here only, never called by the port."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                            enable_gqa=True))[0]
+
+
+def time_model_kernels(launches: dict, errs: dict) -> list:
+    """Each new kernel at the LM-arm route's shapes (B=64 queries, S=127):
+    device ms (profiler), plain ms, bound ms and the library yardstick."""
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda", 0)
+    rows = []
+    flash_shapes = []
+    for label, B, S, H, G, hd, w, dtype, _ in FLASH_CASES[:2]:
+        args = flash_inputs(B, S, H, G, hd, dtype, seed=40, dev=dev)
+        ms, ms_source = device_ms(lambda: ops.flash_attention(*args, window=w))
+        plain_ms, _ = device_ms(lambda: ref.flash_attention_ref(*args, window=w), n=5)
+        b_ms, b_by = bound_ms(*flash_bound(args[0], args[1], w), BF16_OPS_PER_S)
+        flash_shapes.append({"shape": f"{label}: B={B} S={S} H={H} G={G} hd={hd} window={w} bf16",
+                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "library_ms": sdpa_ms(*args), "ms_source": ms_source,
+                             "call_ms": median_ms(lambda: ops.flash_attention(*args, window=w))})
+    main = flash_shapes[1]                 # the heavier (recurrentgemma) shape
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:90",
+        "launches": launches["flash_attention"], "max_abs_err": errs["flash_attention"],
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": main["shape"], "by_shape": flash_shapes,
+    })
+    for name, mk, fn, plain, shape, nbytes_ops, replaces in (
+        ("rglru_scan", lambda: rglru_inputs(64, 127, 4096, seed=41, dev=dev),
+         ops.rglru_scan, ref.rglru_scan_ref, "B=64 S=127 D=4096",
+         lambda a: ((3 * a[0].numel() + 2 * a[2].numel()) * 4, 3.0 * a[0].numel()),
+         "src/repro/kernels/rglru_scan.py:47"),
+        ("mamba_scan", lambda: mamba_inputs(64, 127, 8192, 16, seed=42, dev=dev),
+         ops.mamba_scan, ref.mamba_scan_ref, "B=64 S=127 Din=8192 N=16",
+         lambda a: ((3 * a[0].numel() + 2 * a[6].numel() + a[2].numel() + a[3].numel()
+                     + a[4].numel() + a[5].numel()) * 4,
+                    5.0 * a[0].numel() * a[2].shape[1] + 3.0 * a[0].numel()),
+         "src/repro/kernels/mamba_scan.py:58"),
+    ):
+        args = mk()
+        ms, ms_source = device_ms(lambda: fn(*args))
+        plain_ms, _ = device_ms(lambda: plain(*args), n=3)
+        b_ms, b_by = bound_ms(*nbytes_ops(args))
+        rows.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": shape, "ms_source": ms_source,
+            "call_ms": median_ms(lambda: fn(*args)),
+        })
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -384,6 +757,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # f32 results are compared below: full f32 matmuls and convolutions, no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.core.mc import bucket_size
     from repro_torch.kernels import _build, ops, ref
 
@@ -460,6 +836,26 @@ def main() -> int:
             "call_ms": median_ms(lambda: fn(*args, 4)),
             "plain_call_ms": median_ms(lambda: plain(*args, 4), reps=5, inner=5),
         })
+
+    t0 = time.perf_counter()
+    log("[7 model kernels vs plain, on the card]")
+    errs.update(check_model_kernels(dev))
+    phases["model_kernels_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("[8 one pattern unit of each family, full width, f32: card vs cpu]")
+    model_phase(dev)
+    phases["models_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("[9 LM-arm route: three full-width bf16 arms, use_kernel=True]")
+    lm = lm_route_phase(dev)
+    phases["lm_route_s"] = time.perf_counter() - t0
+    for row in kernels:                 # slice-1 kernels' launches on this path too
+        row["lm_route_launches"] = lm["launches"][row["name"]]
+    t0 = time.perf_counter()
+    log("[10 model kernels timed at the LM-arm route's shapes]")
+    kernels += time_model_kernels(lm["launches"], errs)
+    phases["model_timing_s"] = time.perf_counter() - t0
+    log(f"[lm arms] {json.dumps({k: lm[k] for k in ('forward_ms', 'init_s', 'main_s', 'breakdown')})}")
     log(f"[phases] {json.dumps({k: round(v, 3) for k, v in phases.items()})}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -15,6 +15,13 @@ The ``*_state`` readers take any object with the reference's attribute
 names, so ``workload_state(jax_workload)`` and
 ``workload_state(torch_workload)`` give the same dict; the builders make
 the port's objects from those dicts.
+
+Model-backed arms carry weights. Those cross as the JAX parameter pytree
+in nested numpy dicts — ``{"embed": {"tok"}, "final_norm", ["head":
+{"w"}], "seg{i}": {"u{j}": {name: (repeats, ...)}}}`` — which
+:func:`lm_params_from_jax` unstacks into the port's per-layer layout, in
+the JAX layer order; ``lm_arm_state`` / ``lm_arm_from_state`` carry a whole
+JAX ``LMArm`` (config fields, weights, class tokens, pricing inputs).
 """
 from __future__ import annotations
 
@@ -22,10 +29,12 @@ import dataclasses
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from repro_torch.core.estimation import SuccessProbEstimator
 from repro_torch.data.synth import OracleWorkload
-from repro_torch.serving.engine import OracleArm, PoolEngine
+from repro_torch.models import LM, ModelConfig, unstack_params
+from repro_torch.serving.engine import LMArm, OracleArm, PoolEngine
 from repro_torch.serving.router import ThriftRouter
 
 _WORKLOAD_FIELDS = tuple(f.name for f in dataclasses.fields(OracleWorkload))
@@ -83,4 +92,55 @@ def router_from_state(workload: Dict, history: Dict, arms: List[Dict],
     return ThriftRouter(
         engine_from_state(wl, arms), estimator_from_history(history),
         num_classes, **router_kwargs,
+    )
+
+
+def _to_torch(tree):
+    """Nested dicts of arrays -> nested dicts of CPU tensors (bf16 arrays,
+    which numpy holds as ``ml_dtypes.bfloat16``, cross bit for bit)."""
+    if isinstance(tree, dict):
+        return {k: _to_torch(v) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def lm_params_from_jax(params_np: Dict, cfg) -> Dict:
+    """The port's per-layer parameter layout (CPU tensors) from the JAX
+    parameter pytree given as nested numpy dicts."""
+    return unstack_params(_to_torch(params_np), cfg)
+
+
+def lm_from_jax(params_np: Dict, cfg, device="cuda") -> LM:
+    """The port's ``LM`` of ``cfg`` holding the JAX parameters, on ``device``."""
+    return LM(cfg, device=device, params=lm_params_from_jax(params_np, cfg))
+
+
+def lm_arm_state(arm) -> Dict:
+    """Numpy dict of a JAX ``LMArm``: its name, config fields, parameter
+    pytree, class tokens, ``tokens_per_query`` and ``metered``."""
+    return {
+        "name": arm.name,
+        "cfg": dataclasses.asdict(arm.model.cfg),
+        "params": _to_numpy(arm.params),
+        "class_token_ids": np.array(arm.class_token_ids),
+        "tokens_per_query": int(arm.tokens_per_query),
+        "metered": bool(arm.metered),
+    }
+
+
+def lm_arm_from_state(state: Dict, device="cuda") -> LMArm:
+    """The port's ``LMArm`` answering as the JAX arm ``state`` came from."""
+    cfg = ModelConfig(**state["cfg"])
+    return LMArm(
+        state["name"], lm_from_jax(state["params"], cfg, device),
+        np.asarray(state["class_token_ids"]), tokens_per_query=state["tokens_per_query"],
+        metered=state["metered"],
     )

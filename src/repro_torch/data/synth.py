@@ -7,14 +7,18 @@ excel on some clusters, expensive arms dominate on average, exactly the
 regime where budget-aware ensemble selection pays off.
 
 :class:`OracleWorkload` — arms are Bernoulli oracles with per-class
-success probs (responses follow Eq. 1's error model). Numpy generators
-throughout, copied from ``repro/data/synth.py`` so the port draws the same
-workloads bit for bit; the token-level task waits for the model substrate.
+success probs (responses follow Eq. 1's error model).
+
+:func:`make_token_task` — token sequences whose final token is the class id,
+for the model-backed ``LMArm`` pool.
+
+Numpy generators throughout, copied from ``repro/data/synth.py`` so the
+port draws the same workloads and tasks bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -127,3 +131,53 @@ class OracleWorkload:
             for a in range(self.num_arms):
                 T[i, a] = self.invoke(a, cid[i], labels[i], rng) == labels[i]
         return T, emb, cid
+
+
+# ---------------------------------------------------------------------------
+# Token-level task for real-model arms
+# ---------------------------------------------------------------------------
+
+
+def make_token_task(
+    num_classes: int,
+    seq_len: int,
+    vocab: int,
+    n: int,
+    seed: int = 0,
+    noise: float = 0.0,
+) -> Dict[str, np.ndarray]:
+    """Sequences whose final token must be the class id.
+
+    The class is determined by which `signature` token appears most often in
+    the sequence body — learnable by a tiny LM, with capacity controlling
+    attainable accuracy (bigger arms really are better).
+    """
+    rng = np.random.default_rng(seed)
+    if vocab <= num_classes + 8:
+        raise ValueError(f"vocab {vocab} must exceed num_classes + 8 = {num_classes + 8}")
+    sig_tokens = np.arange(num_classes) + 4          # reserved signature ids
+    body_len = seq_len - 2
+    tokens = rng.integers(num_classes + 4, vocab, size=(n, seq_len))
+    labels = rng.integers(num_classes, size=n)
+    for i in range(n):
+        # plant signature occurrences of the true class (+ distractors)
+        k_true = rng.integers(4, max(5, body_len // 4))
+        pos = rng.choice(body_len, size=k_true, replace=False)
+        tokens[i, pos] = sig_tokens[labels[i]]
+        distract = rng.integers(num_classes)
+        if distract != labels[i]:
+            k_d = int(rng.integers(1, max(2, k_true - 1)))   # strictly fewer
+            free = np.setdiff1d(np.arange(body_len), pos)    # never overwrite
+            if free.size:
+                pos_d = rng.choice(free, size=min(k_d, free.size), replace=False)
+                tokens[i, pos_d] = sig_tokens[distract]
+    tokens[:, -2] = 2                                 # "answer:" marker
+    tokens[:, -1] = sig_tokens[labels]                # answer token
+    if noise > 0:
+        flip = rng.random(n) < noise
+        tokens[flip, -1] = sig_tokens[rng.integers(num_classes, size=flip.sum())]
+    return {
+        "tokens": tokens.astype(np.int32),
+        "labels": labels.astype(np.int32),
+        "class_token_ids": sig_tokens.astype(np.int32),
+    }

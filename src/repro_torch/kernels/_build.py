@@ -38,6 +38,13 @@ KERNELS = {
         "mc_correctness_grouped_launch",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
+    "flash_attention": (
+        "flash_attention_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "rglru_scan": ("rglru_scan_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "mamba_scan": (
+        "mamba_scan_launch", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
 }
 
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}

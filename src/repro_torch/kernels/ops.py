@@ -11,8 +11,11 @@ from __future__ import annotations
 import torch
 
 from . import belief_aggregate as _belief_aggregate
+from . import flash_attention as _flash_attention
+from . import mamba_scan as _mamba_scan
 from . import mc_correctness as _mc_correctness
 from . import ref
+from . import rglru_scan as _rglru_scan
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -64,7 +67,51 @@ def mc_correctness_grouped(responses, masks, log_weights, empty_belief,
 mc_correctness_grouped.launches = 0
 
 
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """(B, S, H, hd) x (B, T, G, hd) -> (B, S, H, hd) causal / windowed GQA
+    attention in q's dtype (f32 or bf16)."""
+    if _device_kind(q) == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    out = _flash_attention.launch(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  causal=causal, window=window)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def rglru_scan(log_a, gated, h0):
+    """Diagonal linear recurrence in f32: ``(h (B, S, D), h_last (B, D))``."""
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    if _device_kind(log_a) == "cpu":
+        return ref.rglru_scan_ref(f32(log_a), f32(gated), f32(h0))
+    out = _rglru_scan.launch(f32(log_a), f32(gated), f32(h0))
+    rglru_scan.launches += 1
+    return out
+
+
+rglru_scan.launches = 0
+
+
+def mamba_scan(x, dt, A, Bmat, Cmat, Dskip, h0):
+    """Fused Mamba-1 selective scan in f32: ``(y (B, S, Din), h_last
+    (B, Din, N))``."""
+    args = [t.to(torch.float32).contiguous() for t in (x, dt, A, Bmat, Cmat, Dskip, h0)]
+    if _device_kind(x) == "cpu":
+        return ref.mamba_scan_ref(*args)
+    out = _mamba_scan.launch(*args)
+    mamba_scan.launches += 1
+    return out
+
+
+mamba_scan.launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch counter to 0."""
     belief_aggregate.launches = 0
     mc_correctness_grouped.launches = 0
+    flash_attention.launches = 0
+    rglru_scan.launches = 0
+    mamba_scan.launches = 0

@@ -26,3 +26,36 @@ def mc_correctness_grouped_ref(responses, masks, log_weights, empty_belief,
     return _masked_xi_core(
         responses, masks, log_weights, empty_belief, valid, theta, num_classes,
     ).to(torch.float32)
+
+
+def flash_attention_ref(q, k, v, causal=True, window=0):
+    """Direct softmax attention in f32 (no blocking), out in q's dtype: the
+    same function as ``repro/models/attention.py::direct_attention``. A row
+    that sees no key gets the mean of v here (softmax over equal masked
+    scores), where the kernel writes 0; self-attention never has one."""
+    # imported here: models.attention imports kernels.ops, which imports this module
+    from repro_torch.models.attention import direct_attention
+
+    return direct_attention(q, k, v, causal=causal, window=window)
+
+
+def rglru_scan_ref(log_a, gated, h0):
+    """Sequential ``h_t = exp(log_a_t) h_{t-1} + u_t``: ``(h (B, S, D),
+    h_last (B, D))``."""
+    h, hs = h0, []
+    for t in range(log_a.shape[1]):
+        h = torch.exp(log_a[:, t]) * h + gated[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def mamba_scan_ref(x, dt, A, Bmat, Cmat, Dskip, h0):
+    """Sequential Mamba-1 scan, one timestep at a time: ``(y (B, S, Din),
+    h_last (B, Din, N))``. Never forms a (B, S, Din, N) tensor — the JAX
+    package's chunked form would, ~4 GB per chunk at full width."""
+    h, ys = h0, []
+    for t in range(x.shape[1]):
+        dt_t, x_t = dt[:, t], x[:, t]                                  # (B, Din)
+        h = torch.exp(dt_t[..., None] * A) * h + (dt_t * x_t)[..., None] * Bmat[:, t, None, :]
+        ys.append((h * Cmat[:, t, None, :]).sum(-1) + Dskip * x_t)
+    return torch.stack(ys, dim=1), h

@@ -1,0 +1,62 @@
+"""Mamba-1 selective state-space math (the port of ``repro/models/ssm.py``).
+
+Recurrence (per channel d, state n):
+    h_t = exp(dt_t * A[d,n]) * h_{t-1} + dt_t * B_t[n] * x_t[d]
+    y_t = sum_n C_t[n] * h_t[d,n] + D[d] * x_t[d]
+
+The JAX package runs a chunked ``lax.scan`` (on a TPU the ``mamba_scan``
+Pallas kernel substitutes); the port runs the fused scan
+:func:`repro_torch.kernels.ops.mamba_scan` — the hand-written CUDA kernel
+on the card, the sequential plain version on the CPU — so ``chunk`` has no
+effect. ``ssm_decode_step`` waits for the decode path.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+def causal_conv1d(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv along time. x (B, S, D), w (D, K), b (D,).
+
+    Returns (y (B, S, D), new_state (B, K-1, D)). An unrolled shifted
+    multiply-add in f32, as the JAX package writes it (not ``F.conv1d``,
+    which would go through cuDNN on the card).
+    """
+    B, S, D = x.shape
+    K = w.shape[1]
+    if state is None:
+        state = torch.zeros((B, K - 1, D), dtype=x.dtype, device=x.device)
+    xt = torch.cat([state, x], dim=1)                       # (B, S+K-1, D)
+    y = 0
+    for i in range(K):
+        y = y + xt[:, i:i + S, :].float() * w[:, i][None, None, :].float()
+    y = y + b[None, None, :]
+    new_state = xt[:, S:, :] if K > 1 else state
+    return y.to(x.dtype), new_state
+
+
+def selective_scan(
+    x: torch.Tensor,        # (B, S, Din) post-conv activations
+    dt: torch.Tensor,       # (B, S, Din) softplus'd step sizes
+    A: torch.Tensor,        # (Din, N) negative real
+    Bmat: torch.Tensor,     # (B, S, N)
+    Cmat: torch.Tensor,     # (B, S, N)
+    Dskip: torch.Tensor,    # (Din,)
+    h0: Optional[torch.Tensor] = None,
+    chunk: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan from ``h0`` (zeros if None). Returns (y (B, S, Din) in
+    x's dtype, h_last (B, Din, N) f32). ``chunk`` is accepted for the JAX
+    signature and has no effect: the kernel is the fused scan."""
+    del chunk
+    B, _, Din = x.shape
+    if h0 is None:
+        h0 = torch.zeros((B, Din, A.shape[1]), dtype=torch.float32, device=x.device)
+    y, h_last = ops.mamba_scan(x, dt, A, Bmat, Cmat, Dskip, h0)
+    return y.to(x.dtype), h_last

@@ -3,11 +3,16 @@
 
 Each *arm* of the ensemble is an operator with a uniform interface:
 ``classify_batch(queries) -> class ids`` plus a per-query cost and a
-simulated latency. This slice carries the :class:`OracleArm` family —
-Bernoulli oracles from the synthetic workload, drawing from numpy
-generators exactly as the reference does, so both packages answer the same
-queries identically. Model-backed arms (``LMArm``) wait for the model
-substrate, and the fault plane for the next slice: :meth:`PoolEngine.fault_grid`
+simulated latency. Two arm families:
+
+  * :class:`LMArm` — a model of the port (:class:`repro_torch.models.LM`)
+    classifying by the argmax over the class-signature token logits at the
+    answer position, run on the model's device;
+  * :class:`OracleArm` — Bernoulli oracles from the synthetic workload,
+    drawing from numpy generators exactly as the reference does, so both
+    packages answer the same queries identically.
+
+The fault plane waits for a later slice: :meth:`PoolEngine.fault_grid`
 always reports a fault-free grid.
 """
 from __future__ import annotations
@@ -16,6 +21,46 @@ import dataclasses
 from typing import Any, List, Sequence
 
 import numpy as np
+import torch
+
+from repro_torch.models import LM
+
+USD_PER_FLOP = 3.5e-18          # calibrated so pool prices match Table 4's range
+
+
+@dataclasses.dataclass
+class LMArm:
+    """A real model arm. ``classify_batch`` takes the argmax over the
+    class-signature token logits at the answer position.
+
+    The JAX arm's ``params`` field has no counterpart: the ``nn.Module``
+    ``model`` owns its weights (and its device)."""
+
+    name: str
+    model: LM
+    class_token_ids: np.ndarray
+    tokens_per_query: int = 128
+    # Self-hosted model: invoking it costs FLOPs we already own, not metered
+    # API dollars — speculative invocation is free throughput.
+    metered: bool = False
+
+    def __post_init__(self):
+        cfg = self.model.cfg
+        self.flops_per_query = cfg.flops_per_token(self.tokens_per_query) * self.tokens_per_query / 3.0
+        self.cost = float(self.flops_per_query * USD_PER_FLOP)
+
+    def classify_batch(self, tokens: np.ndarray) -> np.ndarray:
+        """tokens (B, S) — the answer position is the final token slot."""
+        dev = self.model.device
+        x = torch.as_tensor(np.asarray(tokens)[:, :-1], device=dev).long()
+        cls = torch.as_tensor(np.asarray(self.class_token_ids), device=dev).long()
+        with torch.inference_mode():
+            last = self.model(x)[:, -1]                          # predicts final slot
+            pred = last[:, cls].argmax(dim=-1)
+        return pred.cpu().numpy().astype(np.int64)
+
+    def latency_s(self, batch: int) -> float:
+        return 1e-12 * self.flops_per_query * batch            # simulated
 
 
 @dataclasses.dataclass

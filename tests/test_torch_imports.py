@@ -26,6 +26,9 @@ def test_port_files_exist():
         "src/repro_torch/core/prng.py", "src/repro_torch/core/mc.py",
         "src/repro_torch/core/selection.py", "src/repro_torch/serving/router.py",
         "src/repro_torch/kernels/ops.py", "src/repro_torch/convert.py", "chip_smoke.py",
+        "src/repro_torch/models/model.py", "src/repro_torch/models/blocks.py",
+        "src/repro_torch/configs/__init__.py", "src/repro_torch/kernels/flash_attention.py",
+        "src/repro_torch/kernels/rglru_scan.py", "src/repro_torch/kernels/mamba_scan.py",
     ):
         assert want in names
 

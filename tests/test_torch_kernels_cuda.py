@@ -75,3 +75,110 @@ def test_planner_on_card_matches_cpu_bitwise(cuda):
         assert np.array_equal(s.chosen, m.chosen) and np.array_equal(s.s1, m.s1)
         assert np.array_equal(s.s2, m.s2) and s.l_star == m.l_star
         assert (s.xi_est, s.xi_s1, s.xi_s2) == (m.xi_est, m.xi_s1, m.xi_s2)
+
+
+# (B, S, T, H, G, hd, window, dtype, atol): the serving path's two shapes in
+# bf16, then f32 cases with windows, ragged lengths and every head dim
+FLASH = [
+    (64, 127, 127, 9, 3, 64, 0, torch.bfloat16, 2e-2),
+    (64, 127, 127, 16, 1, 256, 2048, torch.bfloat16, 2e-2),
+    (2, 127, 127, 4, 2, 64, 0, torch.float32, 2e-5),
+    (2, 127, 127, 4, 2, 64, 48, torch.float32, 2e-5),
+    (1, 300, 300, 16, 1, 256, 64, torch.float32, 2e-5),
+    (3, 37, 37, 6, 3, 16, 5, torch.float32, 2e-5),
+    (2, 70, 70, 4, 4, 32, 0, torch.float32, 2e-5),
+    (1, 129, 129, 2, 1, 128, 0, torch.float32, 2e-5),
+    (2, 20, 45, 4, 2, 64, 0, torch.float32, 2e-5),
+]
+
+
+def _normal(shape, seed, device, dtype=torch.float32, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.normal(0, scale, shape).astype(np.float32), device=device).to(dtype)
+
+
+@pytest.mark.parametrize("B,S,T,H,G,hd,window,dtype,atol", FLASH)
+def test_flash_attention_matches_plain(cuda, B, S, T, H, G, hd, window, dtype, atol):
+    q = _normal((B, S, H, hd), S + hd, cuda, dtype)
+    k = _normal((B, T, G, hd), T + 1, cuda, dtype)
+    v = _normal((B, T, G, hd), T + 2, cuda, dtype)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+def test_flash_attention_rows_without_keys_are_zero(cuda):
+    """S > T with a window leaves late rows no visible key: the kernel writes
+    0 there, as the Pallas kernel and the blocked path do."""
+    from repro_torch.models.attention import blocked_attention
+
+    q, k, v = (_normal(s, i, cuda) for i, s in enumerate([(2, 40, 4, 32), (2, 8, 2, 32), (2, 8, 2, 32)]))
+    got = ops.flash_attention(q, k, v, causal=True, window=4)
+    want = blocked_attention(q, k, v, causal=True, window=4, block_kv=8)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[:, 11:]) == 0
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+def test_flash_attention_rejects_unsupported_head_dim(cuda):
+    q = torch.zeros(1, 4, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="hd"):
+        ops.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("B,S,D", [(64, 127, 4096), (3, 37, 200), (2, 1, 33)])
+def test_rglru_scan_matches_plain(cuda, B, S, D):
+    la = -_normal((B, S, D), S, cuda, scale=0.5).abs()
+    u = _normal((B, S, D), S + 1, cuda)
+    h0 = _normal((B, D), S + 2, cuda)
+    before = ops.rglru_scan.launches
+    h, h_last = ops.rglru_scan(la, u, h0)
+    wh, wl = ref.rglru_scan_ref(la, u, h0)
+    torch.cuda.synchronize()
+    assert ops.rglru_scan.launches == before + 1
+    torch.testing.assert_close(h, wh, rtol=0, atol=1e-5)
+    torch.testing.assert_close(h_last, wl, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,Din,N", [(64, 127, 8192, 16), (2, 37, 96, 8), (1, 70, 130, 32), (2, 9, 64, 5)])
+def test_mamba_scan_matches_plain(cuda, B, S, Din, N):
+    x = _normal((B, S, Din), S, cuda)
+    dt = _normal((B, S, Din), S + 1, cuda, scale=0.3).abs() + 0.01
+    A = -_normal((Din, N), S + 2, cuda, scale=0.5).abs() - 0.5
+    Bm, Cm = _normal((B, S, N), S + 3, cuda), _normal((B, S, N), S + 4, cuda)
+    Dk = _normal((Din,), S + 5, cuda)
+    h0 = _normal((B, Din, N), S + 6, cuda)
+    before = ops.mamba_scan.launches
+    y, h_last = ops.mamba_scan(x, dt, A, Bm, Cm, Dk, h0)
+    wy, wh = ref.mamba_scan_ref(x, dt, A, Bm, Cm, Dk, h0)
+    torch.cuda.synchronize()
+    assert ops.mamba_scan.launches == before + 1
+    torch.testing.assert_close(y, wy, rtol=0, atol=3e-4)
+    torch.testing.assert_close(h_last, wh, rtol=0, atol=3e-4)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "recurrentgemma-9b", "falcon-mamba-7b"])
+def test_smoke_lm_on_card_matches_cpu(cuda, arch):
+    """The ``SMOKE`` models in f32, kernels on the card against the plain
+    versions on the CPU, same weights (TF32 off: full f32 matmuls)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import LM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = LM(get_smoke_config(arch), device=cuda, seed=3)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, 512, (2, 63)), device=cuda)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(tokens).cpu()
+        launched = (ops.flash_attention.launches, ops.rglru_scan.launches, ops.mamba_scan.launches)
+        want = model.to("cpu")(tokens.cpu())
+    kinds = set(model.cfg.layer_types)
+    assert launched == (sum(t == "attn" for t in model.cfg.layer_types),
+                        sum(t == "rec" for t in model.cfg.layer_types),
+                        sum(t == "ssm" for t in model.cfg.layer_types)), (kinds, launched)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
