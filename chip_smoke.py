@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving path, GreedyLLM and the paper's baselines
+on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -9,13 +10,18 @@ and ``torch.backends.cudnn.allow_tf32``): f32 results are compared below.
 Phases:
 
 1. report — the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build — compile every CUDA kernel of ``src/repro_torch/csrc`` (five, one
+2. build — compile every CUDA kernel of ``src/repro_torch/csrc`` (six, one
    ``nvcc`` each, all started together; timed as set-up);
 3. kernels vs plain — each router kernel against its plain PyTorch version
    on the same CUDA tensors: ``belief_aggregate`` at (130, 12, 77) and at
    the router's prefix-expanded shape for K=4 and K=77 (beliefs to 1e-6,
    predictions exact); ``mc_correctness_grouped`` at planner shapes
    (G in {1, 8}, C=3, T=16384, L=12, K in {4, 77}) to 2e-6;
+   ``mc_correctness`` on ``sample_pool_responses`` draws at the Fig. 11
+   shape (T=8000, L=8, C=8, K=4), the serve defaults (T =
+   ``theta_for(0.1, 0.01, 0.95, 12)``, L=12, C=12) at K=4 and K=77, one
+   candidate over T=300 (less than a block) and a ragged last block, to
+   2e-6, reporting whether it is bitwise;
 4. route — the serve defaults (12 arms, K=4, 6 clusters, history 2000,
    batches of 64, eps 0.1, delta 0.01): uniform-budget batches (batched
    planner + device wave loop) and mixed-budget batches (serial planner,
@@ -47,14 +53,31 @@ Phases:
    ``rglru_scan``, ``mamba_scan`` and ``belief_aggregate`` must each be
    above 0; costs stay within budget, a second route of each batch repeats
    the first, and the plans equal those of a router planning on the CPU;
-10. timing — each model kernel at the LM-arm route's shapes.
+10. timing — each model kernel at the LM-arm route's shapes;
+11. GreedyLLM on MC xi — GreedyLLM (Alg. 1) scoring candidates with
+    ``McXiEstimator(use_kernel=True)`` on the card, held to the same run on
+    the CPU (equal picks, final xi within 2e-6): (a) the Fig. 11 setting of
+    ``benchmarks/paper_benches.py::xi_vs_gamma`` (40 seeds, 8 arms, theta
+    8000, K=4, budget 1.0), printing its ``mean_xi_gain`` against greedy on
+    gamma; (b) every cluster of the serve-default workload (K=4, 2000-query
+    history) at the five budgets of ``examples/budget_sweep.py`` with theta
+    ``theta_for(0.1, 0.01, max p, 12)``, then a K=77 workload at 5e-4.
+    ``mc_correctness``'s launch counter, zeroed before the phase, must be
+    above 0 after it; one selection is timed on the host clock (median of
+    5) and the kernel at the shape the phase gave it;
+12. budget sweep — ``repro_torch.budget_sweep`` at the example's defaults
+    (600 queries, 3000 history, 5 budgets): ThriftLLM, SurGreedy, cascade,
+    top-k, single and blender with the router on the card and on the CPU;
+    every column's (accuracy, mean cost) must be equal, and every
+    budget-aware column within its budget.
 
 Two lines before the last is a JSON object listing every kernel with its
 launches, error, bound and times — ``ms``/``plain_ms``/``library_ms`` are
 device time per call from a ``torch.profiler`` trace, ``call_ms`` the
 CUDA-event wall time per call, host dispatch included; a router kernel's
 ``launches`` count phases 4-5 and its ``lm_route_launches`` phase 9, a
-model kernel's ``launches`` phase 9; ``flash_attention`` is listed at the
+model kernel's ``launches`` phase 9, ``mc_correctness``'s phase 11;
+``flash_attention`` is listed at the
 recurrentgemma shape with both path shapes under ``by_shape``. The line
 before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
@@ -138,6 +161,25 @@ def device_ms(fn, n: int = 20):
     if us > 0:
         return us / n / 1e3, "profiler"
     return median_ms(fn), "events"
+
+
+def profiled_split(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its host-clock wall ms,
+    the device ms of each kernel it launched (kernel rows only), and the
+    device's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {e.key: e.self_device_time_total / 1e3 for e in device_events(prof)}
+    busy = sum(kernels.values())
+    return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "kernels_ms": kernels}
 
 
 # ---------------------------------------------------------------------------
@@ -237,10 +279,43 @@ def kernel_error(name: str, got, want, label: str) -> float:
     return err
 
 
+def single_cases():
+    """(T, L, C, K, label) of phase 3's ``mc_correctness`` checks."""
+    from repro_torch.core.mc import theta_for
+
+    t_serve = theta_for(0.1, 0.01, 0.95, 12)
+    return ((8000, 8, 8, 4, "Fig. 11"), (t_serve, 12, 12, 4, "serve defaults"),
+            (t_serve, 12, 12, 77, "serve defaults"), (300, 12, 1, 4, "one candidate, T < a block"),
+            (1000, 8, 6, 17, "ragged last block"))
+
+
+def single_inputs(T: int, L: int, C: int, K: int, seed: int, dev):
+    """One pool's ``sample_pool_responses`` draws (through ``McXiEstimator``)
+    plus random candidate masks: the arguments of ``mc_correctness``."""
+    from repro_torch.core import McXiEstimator, prng
+
+    rng = np.random.default_rng(seed)
+    est = McXiEstimator(prng.key(seed, dev), rng.uniform(0.4, 0.95, L), K, T, device=dev)
+    masks = (rng.random((C, L)) < 0.6).astype(np.float32)
+    return est._responses, torch.as_tensor(masks, device=dev), est._w, est._empty
+
+
+def single_bound(args, K):
+    """(bytes, operations) of one ``mc_correctness`` call: draws, masks,
+    weights and the empty belief read once, C values written; per draw and
+    candidate one add per masked arm, the display, max and tie count."""
+    resp, masks, w, _ = args
+    T, L = resp.shape
+    C = masks.shape[0]
+    nbytes = (resp.numel() + masks.numel() + w.numel() + 1 + C) * 4
+    ops = float(T * ((masks > 0).sum(dim=1).double() + 2 * K + 1).sum())
+    return nbytes, ops
+
+
 def check_kernels(dev) -> dict:
     from repro_torch.kernels import ops, ref
 
-    errs = {"belief_aggregate": 0.0, "mc_correctness_grouped": 0.0}
+    errs = {"belief_aggregate": 0.0, "mc_correctness_grouped": 0.0, "mc_correctness": 0.0}
     for rows_b, T, K, prefix in ((130, 12, 77, False), (64, 12, 4, True), (64, 12, 77, True)):
         args = belief_inputs(rows_b, T, K, prefix, seed=rows_b + K, dev=dev)
         err = kernel_error("belief_aggregate", ops.belief_aggregate(*args, K),
@@ -254,6 +329,16 @@ def check_kernels(dev) -> dict:
                                ref.mc_correctness_grouped_ref(*args, K),
                                f"G={G} C=3 T=16384 L=12 K={K}")
             errs["mc_correctness_grouped"] = max(errs["mc_correctness_grouped"], err)
+    bitwise = True
+    for T, L, C, K, label in single_cases():
+        args = single_inputs(T, L, C, K, seed=T + C + K, dev=dev)
+        got, want = ops.mc_correctness(*args, K), ref.mc_correctness_ref(*args, K)
+        err = kernel_error("mc_correctness", got, want, f"{label}: T={T} L={L} C={C} K={K}")
+        same = bool(torch.equal(got, want))
+        log(f"    bitwise={same}")
+        bitwise = bitwise and same
+        errs["mc_correctness"] = max(errs["mc_correctness"], err)
+    errs["mc_correctness_bitwise"] = bitwise
     return errs
 
 
@@ -652,22 +737,14 @@ def forward_breakdown(arm, tokens) -> dict:
     host) under ``torch.profiler``, the device time of its kernels split
     into the model kernels, cuBLAS matmuls and everything else, and the
     device's idle share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    arm.classify_batch(tokens)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        arm.classify_batch(tokens)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = profiled_split(lambda: arm.classify_batch(tokens))
     parts = dict.fromkeys([*MODEL_KERNELS, "matmul", "other"], 0.0)
-    for e in device_events(prof):
-        cat = next((k for k in MODEL_KERNELS if f"{k}_kernel" in e.key), None)
+    for key, ms in prof["kernels_ms"].items():
+        cat = next((k for k in MODEL_KERNELS if f"{k}_kernel" in key), None)
         if cat is None:
-            cat = "matmul" if any(m in e.key.lower() for m in GEMM_MARKS) else "other"
-        parts[cat] += e.self_device_time_total / 1e3
-    busy = sum(parts.values())
-    return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            cat = "matmul" if any(m in key.lower() for m in GEMM_MARKS) else "other"
+        parts[cat] += ms
+    return {**{k: prof[k] for k in ("wall_ms", "device_ms", "idle_share")},
             **{f"{k}_ms": v for k, v in parts.items()}}
 
 
@@ -743,6 +820,147 @@ def time_model_kernels(launches: dict, errs: dict) -> list:
             "call_ms": median_ms(lambda: fn(*args)),
         })
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 11-12: GreedyLLM on MC xi and the paper's baselines
+# ---------------------------------------------------------------------------
+
+SWEEP_BUDGETS = (1e-5, 5e-5, 1e-4, 5e-4, 1e-3)        # examples/budget_sweep.py:31
+
+
+def check_greedy(got, want, label: str) -> float:
+    """GreedyLLM's (chosen, value) on the card against the CPU's: equal
+    picks, values within ``XI_ATOL``; returns the value gap."""
+    gap = abs(got[1] - want[1])
+    if got[0] != want[0] or not gap <= XI_ATOL:
+        raise AssertionError(f"GreedyLLM {label}: card picked {got[0]} (xi {got[1]}), "
+                             f"cpu {want[0]} (xi {want[1]})")
+    return gap
+
+
+def greedy_phase(dev) -> dict:
+    """GreedyLLM on Monte-Carlo xi: the ``mc_correctness`` kernel on the card
+    against the plain version on the CPU, over the same draws."""
+    from repro_torch.core import (
+        McXiEstimator, SuccessProbEstimator, clip_probs, gamma_value_batch, greedy, prng,
+        theta_for, xi_exact,
+    )
+
+    est_of = lambda where, key, p, K, theta: McXiEstimator(
+        prng.key(key, where), p, K, theta, use_kernel=True, device=where)
+    cpu = torch.device("cpu")
+    gap = 0.0
+    # (a) Fig. 11: benchmarks/paper_benches.py::xi_vs_gamma
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    diffs = []
+    for s in range(40):
+        p, b = rng.uniform(0.4, 0.95, 8), rng.uniform(0.1, 0.6, 8)
+        got = greedy(p, b, 1.0, est_of(dev, s, p, 4, 8000), empty_value=0.25)
+        gap = max(gap, check_greedy(got, greedy(p, b, 1.0, est_of(cpu, s, p, 4, 8000),
+                                                empty_value=0.25), f"Fig. 11 seed {s}"))
+        s1 = got[0]
+        s2, _ = greedy(p, b, 1.0, gamma_value_batch(p), empty_value=0.0)
+        x1 = xi_exact(p[s1], 4, p_all=p) if s1 else 0.25
+        x2 = xi_exact(p[s2], 4, p_all=p) if s2 else 0.25
+        diffs.append(x1 - x2)
+    fig11 = {"seeds": 40, "mean_xi_gain": float(np.mean(diffs)), "max_xi_gain": float(np.max(diffs)),
+             "seconds": time.perf_counter() - t0}
+    log(f"  Fig. 11: 40 seeds card == cpu picks; mean_xi_gain={fig11['mean_xi_gain']:+.4f} "
+        f"max={fig11['max_xi_gain']:.4f} in {fig11['seconds']:.1f} s")
+    # (b) the serve defaults, every cluster x budget; then K=77 at 5e-4
+    serve = {}
+    for K, budgets in ((4, SWEEP_BUDGETS), (77, (5e-4,))):
+        t0 = time.perf_counter()
+        wl, _, history, _ = serve_state(K)
+        est = SuccessProbEstimator(history["table"], history["emb"], history["assign"])
+        costs = np.asarray(wl.costs, np.float64)
+        picks = 0
+        for cid, cs in est.clusters.items():
+            p = cs.p_hat
+            theta = theta_for(0.1, 0.01, float(np.max(clip_probs(p))), 12)
+            on_card, on_cpu = est_of(dev, 0, p, K, theta), est_of(cpu, 0, p, K, theta)
+            for budget in budgets:
+                got = greedy(p, costs, budget, on_card, empty_value=1 / K)
+                gap = max(gap, check_greedy(got, greedy(p, costs, budget, on_cpu, empty_value=1 / K),
+                                            f"K={K} cluster {cid} budget {budget}"))
+                picks += len(got[0])
+        serve[f"K={K}"] = {"clusters": len(est.clusters), "budgets": list(budgets),
+                           "arms_picked": picks, "seconds": time.perf_counter() - t0}
+        log(f"  serve defaults K={K}: {len(est.clusters)} clusters x {len(budgets)} budgets "
+            f"card == cpu, {picks} arms picked, in {serve[f'K={K}']['seconds']:.1f} s")
+    return {"fig11": fig11, "serve": serve, "max_gap": gap}
+
+
+def greedy_times(dev) -> dict:
+    """Host-clock time of one GreedyLLM selection on the card, ending in its
+    last host copy (median of 5 after one warm-up), at the serve defaults'
+    longest one: the cluster with the most draws at the largest budget. With
+    the kernel and with the plain version on the card; one profiled selection
+    with the kernel (device ms by kernel, idle share); and the kernel's
+    first-round shape there, at which phase 11's kernel row is timed."""
+    from repro_torch.core import (
+        McXiEstimator, SuccessProbEstimator, clip_probs, greedy, prng, theta_for,
+    )
+
+    wl, _, history, _ = serve_state(4)
+    est = SuccessProbEstimator(history["table"], history["emb"], history["assign"])
+    costs = np.asarray(wl.costs, np.float64)
+    p = max((cs.p_hat for cs in est.clusters.values()),
+            key=lambda q: theta_for(0.1, 0.01, float(np.max(clip_probs(q))), 12))
+    theta = theta_for(0.1, 0.01, float(np.max(clip_probs(p))), 12)
+    budget = SWEEP_BUDGETS[-1]
+    out = {"theta": theta, "budget": budget}
+    for use_kernel in (True, False):
+        xi = McXiEstimator(prng.key(0, dev), p, 4, theta, use_kernel=use_kernel, device=dev)
+        sizes = []
+        fn = lambda m: (sizes.append(len(m)), xi(m))[1]
+        times = []
+        for _ in range(6):
+            sizes.clear()
+            t0 = time.perf_counter()
+            greedy(p, costs, budget, fn, empty_value=0.25)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["kernel_ms" if use_kernel else "plain_ms"] = float(np.median(times[1:]))
+        out["rounds"] = len(sizes)
+        if use_kernel:
+            out["profiled"] = profiled_split(lambda: greedy(p, costs, budget, xi, empty_value=0.25))
+            C = sizes[0]
+            masks = np.zeros((C, 12), np.float32)
+            masks[np.arange(C), np.flatnonzero(costs <= budget + 1e-15)] = 1.0
+            out["args"] = (xi._responses, torch.as_tensor(masks, device=dev), xi._w, xi._empty)
+    return out
+
+
+def sweep_phase(dev) -> dict:
+    """The budget sweep at the example's defaults with the router on the card
+    and on the CPU: every column equal, budget-aware columns within budget."""
+    from repro_torch import budget_sweep
+
+    runs, secs = {}, {}
+    for label, where in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        runs[label] = budget_sweep.sweep(device=where)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+    card, cpu = runs["card"], runs["cpu"]
+    for budget, cols in card["rows"].items():
+        for col, (acc, cost) in cols.items():
+            want = cpu["rows"][budget][col]
+            if (float(acc), float(cost)) != (float(want[0]), float(want[1])):
+                raise AssertionError(f"sweep {col} at {budget}: card ({acc}, {cost}) "
+                                     f"cpu ({want[0]}, {want[1]})")
+            if not (0.0 <= acc <= 1.0 and cost <= budget * (1 + 1e-12)):
+                raise AssertionError(f"sweep {col} at {budget}: accuracy {acc}, mean cost {cost}")
+    if card["blender"] != cpu["blender"]:
+        raise AssertionError(f"sweep blender: card {card['blender']} cpu {cpu['blender']}")
+    table = {f"{b:g}": {c: [float(a), float(m)] for c, (a, m) in cols.items()}
+             for b, cols in card["rows"].items()}
+    table["blender"] = [float(x) for x in card["blender"]]
+    log(f"  card == cpu on every column; card {secs['card']:.1f} s, cpu {secs['cpu']:.1f} s")
+    log(f"[sweep] {json.dumps(table)}")
+    return {"card_s": secs["card"], "cpu_s": secs["cpu"]}
 
 
 # ---------------------------------------------------------------------------
@@ -856,6 +1074,48 @@ def main() -> int:
     kernels += time_model_kernels(lm["launches"], errs)
     phases["model_timing_s"] = time.perf_counter() - t0
     log(f"[lm arms] {json.dumps({k: lm[k] for k in ('forward_ms', 'init_s', 'main_s', 'breakdown')})}")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    log("[11 GreedyLLM on MC xi: mc_correctness on the card vs the cpu]")
+    greedy_res = greedy_phase(dev)
+    mc_launches = ops.mc_correctness.launches
+    phases["greedy_s"] = time.perf_counter() - t0
+    log(f"  mc_correctness launches in phase 11: {mc_launches}")
+    if mc_launches <= 0:
+        raise AssertionError("kernel mc_correctness was never launched by GreedyLLM")
+    gt = greedy_times(dev)
+    args = gt.pop("args")
+    log(f"[greedy] {json.dumps({**greedy_res, 'selection': gt})}")
+    T1, C1 = args[0].shape[0], args[1].shape[0]
+    shape = f"T={T1} L=12 C={C1} K=4"
+    err = kernel_error("mc_correctness", ops.mc_correctness(*args, 4),
+                       ref.mc_correctness_ref(*args, 4), f"{shape} (phase 11)")
+    errs["mc_correctness"] = max(errs["mc_correctness"], err)
+    ms, ms_source = device_ms(lambda: ops.mc_correctness(*args, 4))
+    plain_ms, plain_source = device_ms(lambda: ref.mc_correctness_ref(*args, 4), n=5)
+    b_ms, b_by = bound_ms(*single_bound(args, 4))
+    kernels.append({
+        "name": "mc_correctness", "route": "cuda",
+        "source": "src/repro_torch/csrc/mc_correctness.cu",
+        "replaces": "src/repro/kernels/mc_correctness.py:79",
+        "launches": mc_launches, "max_abs_err": errs["mc_correctness"],
+        "bitwise": errs["mc_correctness_bitwise"] and err == 0.0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "shape": shape, "ms_source": ms_source,
+        "plain_ms_source": plain_source,
+        "call_ms": median_ms(lambda: ops.mc_correctness(*args, 4)),
+        "plain_call_ms": median_ms(lambda: ref.mc_correctness_ref(*args, 4), reps=5, inner=5),
+    })
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    log("[12 budget sweep at the example's defaults: card vs cpu]")
+    sweep_phase(dev)
+    phases["sweep_s"] = time.perf_counter() - t0
+    log(f"  kernel launches in phase 12: mc_correctness {ops.mc_correctness.launches}, "
+        f"belief_aggregate {ops.belief_aggregate.launches}, "
+        f"mc_correctness_grouped {ops.mc_correctness_grouped.launches}")
     log(f"[phases] {json.dumps({k: round(v, 3) for k, v in phases.items()})}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

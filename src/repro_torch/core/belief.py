@@ -103,6 +103,43 @@ def predict_from_beliefs(
     return int(pred), int(n_ties)
 
 
+def aggregate_predict(
+    responses: np.ndarray,
+    probs: np.ndarray,
+    num_classes: int,
+    method: str = "ml",
+    rng: Optional[np.random.Generator] = None,
+    p_all: Optional[np.ndarray] = None,
+) -> int:
+    """Full aggregation pipeline for one query.
+
+    Args:
+      responses: (m,) class ids predicted by the invoked arms.
+      probs: (m,) success probabilities of those arms on this query class.
+      method: ``"ml"`` (paper, Eq. 4) | ``"weighted"`` (sum of p as vote
+        weight) | ``"majority"`` (unweighted) -- the Fig. 14 ablation.
+      p_all: pool-wide probs for the empty-class heuristic (defaults to
+        ``probs``).
+    """
+    if len(responses) == 0:
+        return int(rng.integers(num_classes)) if rng is not None else 0
+    probs = np.asarray(probs, np.float64)
+    if method == "ml":
+        w = log_weight(probs, num_classes)
+        empty = empty_log_belief(probs if p_all is None else p_all)
+    elif method == "weighted":
+        w = probs
+        empty = 0.0
+    elif method == "majority":
+        w = np.ones_like(probs)
+        empty = 0.0
+    else:
+        raise ValueError(f"unknown aggregation method: {method}")
+    beliefs = aggregate_log_beliefs(responses, w, num_classes, empty)
+    pred, _ = predict_from_beliefs(beliefs, rng)
+    return pred
+
+
 def top2_beliefs(beliefs: np.ndarray) -> Tuple[float, float, int]:
     """Return (H1, H2, argmax) of a (K,) log-belief vector (Algorithm 3)."""
     order = np.argsort(beliefs)

@@ -17,8 +17,13 @@ Differences from the reference: no ``jit`` (torch runs eagerly, one IEEE op
 per statement), tensors live on an explicit ``device``, and the host-side
 belief-table loops of the reference's ``GroupedXiEstimator.__call__`` are
 the mask chain of :func:`_masked_xi_core` itself (the reference documents
-the two as the same operand sequence). ``McXiEstimator`` and
-``xi_from_responses`` wait for the ``mc_correctness`` kernel.
+the two as the same operand sequence).
+
+:func:`xi_from_responses` and :class:`McXiEstimator` (the CRN estimator of
+one pool, behind GreedyLLM on xi) use that exact form too: the group core
+at G=1 over every draw. It differs from the reference's f32 mean by at most
+an f32 rounding, and it is the plain version the ``mc_correctness`` kernel
+equals bit for bit.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from . import prng
-from .belief import log_weight
+from .belief import empty_log_belief, log_weight
 from .types import clip_probs
 
 TIE_TOL = 1e-6
@@ -74,6 +79,90 @@ def sample_pool_responses_grouped(key: prng.Key, ps, num_classes: int, theta: in
     ps = torch.as_tensor(ps, dtype=torch.float32, device=key[0].device)
     u, wrong = _draw_rows(key, ps.shape[1], num_classes, theta)
     return torch.where(u[None] < ps[:, None, :], 0, wrong[None]).to(torch.int32)
+
+
+def xi_from_responses(responses, masks, log_weights, empty_belief,
+                      num_classes: int) -> torch.Tensor:
+    """Estimate xi for C candidate subsets from shared response draws.
+
+    responses (T, L) int32, masks (C, L) f32 0/1, log_weights (L,) f32,
+    empty_belief a scalar f32. Returns (C,) f32: the exact fractional-credit
+    mean of :func:`_masked_xi_core` over all T draws, rounded once to f32.
+    This is the plain version of the ``mc_correctness`` kernel.
+    """
+    T = responses.shape[0]
+    dev = responses.device
+    empty = torch.as_tensor(empty_belief, dtype=torch.float32, device=dev).reshape(1)
+    valid = torch.ones((1, T), dtype=torch.float32, device=dev)
+    theta = torch.full((1,), float(T), dtype=torch.float64, device=dev)
+    return _masked_xi_core(
+        responses[None], masks[None], log_weights[None], empty, valid, theta, num_classes,
+    )[0].to(torch.float32)
+
+
+class McXiEstimator:
+    """Stateful CRN estimator bound to one (pool, query-class) pair.
+
+    ``key`` is a port key (:func:`repro_torch.core.prng.key`); the draws are
+    the reference's bit for bit. ``use_kernel`` scores candidates with the
+    ``mc_correctness`` kernel (its plain version for a CPU ``device``).
+
+    Usage::
+
+        est = McXiEstimator(prng.key(0, "cuda"), p, K, theta)
+        vals = est(masks)          # (C,) numpy
+        x    = est.xi(indices)     # scalar
+    """
+
+    def __init__(
+        self,
+        key: prng.Key,
+        p: np.ndarray,
+        num_classes: int,
+        theta: int,
+        p_all: Optional[np.ndarray] = None,
+        use_kernel: bool = False,
+        device="cuda",
+    ):
+        self.device = torch.device(device)
+        self.p = clip_probs(p)
+        self.num_arms = int(self.p.size)
+        self.num_classes = int(num_classes)
+        self.theta = int(theta)
+        self.use_kernel = bool(use_kernel)
+        self._w = torch.as_tensor(
+            log_weight(self.p, self.num_classes).astype(np.float32), device=self.device
+        )
+        self._empty = torch.tensor(
+            empty_log_belief(self.p if p_all is None else p_all),
+            dtype=torch.float32, device=self.device,
+        )
+        key = tuple(k.to(self.device) for k in key)
+        self._responses = sample_pool_responses(
+            key, self.p.astype(np.float32), self.num_classes, self.theta
+        )
+
+    def __call__(self, masks: np.ndarray) -> np.ndarray:
+        masks = torch.as_tensor(
+            np.atleast_2d(np.asarray(masks, np.float32)), device=self.device
+        )
+        if self.use_kernel:
+            from repro_torch.kernels import ops as kernel_ops
+
+            vals = kernel_ops.mc_correctness(
+                self._responses, masks, self._w, self._empty, self.num_classes
+            )
+        else:
+            vals = xi_from_responses(
+                self._responses, masks, self._w, self._empty, self.num_classes
+            )
+        return vals.cpu().numpy()
+
+    def xi(self, indices) -> float:
+        mask = np.zeros(self.num_arms, np.float32)
+        if len(indices):
+            mask[np.asarray(indices, np.int64)] = 1.0
+        return float(self(mask[None, :])[0])
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,9 @@ KERNELS = {
     "belief_aggregate": (
         "belief_aggregate_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     ),
+    "mc_correctness": (
+        "mc_correctness_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
     "mc_correctness_grouped": (
         "mc_correctness_grouped_launch",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -46,6 +46,24 @@ def belief_aggregate(responses, log_weights, empty_belief, num_classes: int):
 belief_aggregate.launches = 0
 
 
+def mc_correctness(responses, masks, log_weights, empty_belief, num_classes: int):
+    """(C,) f32 xi estimates of C candidate masks over one pool's shared
+    (T, L) draws; ``empty_belief`` is a scalar."""
+    if _device_kind(responses) == "cpu":
+        return ref.mc_correctness_ref(responses, masks, log_weights, empty_belief, num_classes)
+    dev = responses.device
+    f32 = lambda t: torch.as_tensor(t, dtype=torch.float32, device=dev).contiguous()
+    out = _mc_correctness.launch(
+        responses.to(torch.int32).contiguous(), f32(masks), f32(log_weights),
+        f32(empty_belief).reshape(1), num_classes,
+    )
+    mc_correctness.launches += 1
+    return out
+
+
+mc_correctness.launches = 0
+
+
 def mc_correctness_grouped(responses, masks, log_weights, empty_belief,
                            valid, theta, num_classes: int):
     """(G, C) f32 xi estimates over the planner's stacked (G, theta, L)
@@ -111,6 +129,7 @@ mamba_scan.launches = 0
 def reset_launch_counts() -> None:
     """Set every kernel's launch counter to 0."""
     belief_aggregate.launches = 0
+    mc_correctness.launches = 0
     mc_correctness_grouped.launches = 0
     flash_attention.launches = 0
     rglru_scan.launches = 0

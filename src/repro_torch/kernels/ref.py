@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.belief import aggregate_log_beliefs_batch
-from repro_torch.core.mc import _masked_xi_core
+from repro_torch.core.mc import _masked_xi_core, xi_from_responses
 
 
 def belief_aggregate_ref(responses, log_weights, empty_belief, num_classes):
@@ -17,6 +17,11 @@ def belief_aggregate_ref(responses, log_weights, empty_belief, num_classes):
     ascending arm order, first-max argmax."""
     beliefs = aggregate_log_beliefs_batch(responses, log_weights, num_classes, empty_belief)
     return beliefs, torch.argmax(beliefs, dim=-1).to(torch.int32)
+
+
+# (C,) f32 xi of C masks over one pool's (T, L) draws: the estimator's exact
+# form (the group core at G=1, every draw valid, theta = T), rounded to f32
+mc_correctness_ref = xi_from_responses
 
 
 def mc_correctness_grouped_ref(responses, masks, log_weights, empty_belief,

@@ -21,7 +21,8 @@ def _imported_roots(path: Path):
 
 
 def test_port_files_exist():
-    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    csrc = sorted((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES + csrc}
     for want in (
         "src/repro_torch/core/prng.py", "src/repro_torch/core/mc.py",
         "src/repro_torch/core/selection.py", "src/repro_torch/serving/router.py",
@@ -29,6 +30,9 @@ def test_port_files_exist():
         "src/repro_torch/models/model.py", "src/repro_torch/models/blocks.py",
         "src/repro_torch/configs/__init__.py", "src/repro_torch/kernels/flash_attention.py",
         "src/repro_torch/kernels/rglru_scan.py", "src/repro_torch/kernels/mamba_scan.py",
+        "src/repro_torch/kernels/mc_correctness.py", "src/repro_torch/csrc/mc_correctness.cu",
+        "src/repro_torch/core/cascade.py", "src/repro_torch/core/belief.py",
+        "src/repro_torch/budget_sweep.py",
     ):
         assert want in names
 

@@ -15,13 +15,16 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core import selection as tsel
-from repro_torch.core.mc import GroupedXiEstimator
+from repro_torch.core.mc import GroupedXiEstimator, McXiEstimator
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
 
 BELIEF = [(16, 4, 3), (37, 8, 5), (130, 12, 77), (832, 12, 4)]
 GROUPED = [(1, 512, 4, 2, 3), (5, 700, 8, 5, 4), (3, 300, 12, 7, 6), (8, 16384, 12, 77, 3)]
+# (theta, L, C, K): the Fig. 11 shape, one candidate over fewer draws than a
+# block, a ragged last block at K=77, and K=17 (the last lcm-scaled K)
+SINGLE = [(8000, 8, 8, 4), (300, 12, 1, 4), (16843, 12, 12, 77), (1000, 8, 6, 17)]
 
 
 @pytest.fixture
@@ -62,6 +65,37 @@ def test_mc_correctness_grouped_matches_plain(cuda, G, theta, L, K, C):
     torch.cuda.synchronize()
     assert ops.mc_correctness_grouped.launches == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("theta,L,C,K", SINGLE)
+def test_mc_correctness_matches_plain(cuda, theta, L, C, K):
+    rng = np.random.default_rng(theta + C)
+    est = McXiEstimator(prng.key(4, cuda), rng.uniform(0.4, 0.95, L), K, theta, device=cuda)
+    masks = torch.as_tensor((rng.random((C, L)) < 0.6).astype(np.float32), device=cuda)
+    args = (est._responses, masks, est._w, est._empty, K)
+    before = ops.mc_correctness.launches
+    got = ops.mc_correctness(*args)
+    want = ref.mc_correctness_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.mc_correctness.launches == before + 1
+    assert got.shape == (C,) and got.dtype == torch.float32
+    # integer partials and the plain version's f64 combine: bitwise
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 31])
+def test_greedy_on_mc_xi_on_card_matches_cpu(cuda, seed):
+    """GreedyLLM on the Fig. 11 pool of ``seed``: the kernel on the card
+    picks what the plain version picks on the CPU, with equal values."""
+    rng = np.random.default_rng(0)
+    for _ in range(seed + 1):
+        p, b = rng.uniform(0.4, 0.95, 8), rng.uniform(0.1, 0.6, 8)
+    on_card = McXiEstimator(prng.key(seed, cuda), p, 4, 8000, use_kernel=True, device=cuda)
+    on_cpu = McXiEstimator(prng.key(seed, "cpu"), p, 4, 8000, device="cpu")
+    before = ops.mc_correctness.launches
+    got = tsel.greedy(p, b, 1.0, on_card, empty_value=0.25)
+    assert ops.mc_correctness.launches > before
+    assert got == tsel.greedy(p, b, 1.0, on_cpu, empty_value=0.25)
 
 
 def test_planner_on_card_matches_cpu_bitwise(cuda):
