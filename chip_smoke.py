@@ -11,7 +11,9 @@ Phases:
 
 1. report — the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build — compile every CUDA kernel of ``src/repro_torch/csrc`` (six, one
-   ``nvcc`` each, all started together; timed as set-up);
+   ``nvcc`` each, all started together; timed as set-up), then count the
+   tensor-core instructions (``HGMMA``/``HMMA``) in the ``flash_attention``
+   library's SASS (``cuobjdump -sass``): the phase fails at 0;
 3. kernels vs plain — each router kernel against its plain PyTorch version
    on the same CUDA tensors: ``belief_aggregate`` at (130, 12, 77) and at
    the router's prefix-expanded shape for K=4 and K=77 (beliefs to 1e-6,
@@ -35,11 +37,17 @@ Phases:
    phase 4, must be above 0 after phase 5; then one route of 64 is timed
    cold and warm on the card, and each kernel is checked against its plain
    version and timed at the shape the main path gave it;
-7. model kernels vs plain — ``flash_attention`` at the two LM arms' shapes
-   in bf16 (2e-2) and in f32 with and without windows, hd 64 and 256
-   (2e-5); ``rglru_scan`` at (64, 127, 4096) and (3, 37, 200) (1e-5);
-   ``mamba_scan`` at (64, 127, 8192, 16) and (2, 37, 96, 8) (3e-4), all
-   with nonzero initial states;
+7. model kernels vs plain — ``flash_attention`` in bf16 (the tensor-core
+   kernel, 2e-2 against the f32 plain version) at the two LM arms' shapes,
+   at S=37 with T=45, with window 5, at hd 16, 32 and 128 and at query /
+   kv head ratios 1, 3 and 16, and in f32 (the CUDA-core kernel) with and
+   without windows, hd 64 and 256 (2e-5); ``rglru_scan`` at (64, 127,
+   4096) and (3, 37, 200) (1e-5); ``mamba_scan`` at the falcon-mamba path
+   case — bf16 x, B and C, B and C strided views of one (B, S, R + 2N)
+   projection, dt in f32 as the block gives it, no initial state: h_last
+   within 3e-4, the bf16 y within 3e-4 plus one rounding to nearest
+   (2^-8 |y|) of the plain version's unrounded f32 y — and in f32 at (64, 127, 8192, 16) and (2, 37,
+   96, 8) with nonzero initial states (3e-4);
 8. models — smollm-135m, recurrentgemma-9b and falcon-mamba-7b at full
    width in f32, cut to one pattern unit of depth (1, 3 and 1 layers) so
    the CPU side takes seconds: the same weights forward on the card and on
@@ -53,7 +61,13 @@ Phases:
    ``rglru_scan``, ``mamba_scan`` and ``belief_aggregate`` must each be
    above 0; costs stay within budget, a second route of each batch repeats
    the first, and the plans equal those of a router planning on the CPU;
-10. timing — each model kernel at the LM-arm route's shapes;
+10. timing — each model kernel at the LM-arm route's shapes and dtypes
+    (``mamba_scan`` with bf16 x, strided bf16 B, C, f32 dt and no initial
+    state, bound
+    by its exponentials at the card's maximum SM clock); an ``[earlier
+    kernels]`` line sets each redesigned kernel's time beside its earlier
+    version's recorded time (not measured in this run, and so kept out of
+    the ``kernels`` line);
 11. GreedyLLM on MC xi — GreedyLLM (Alg. 1) scoring candidates with
     ``McXiEstimator(use_kernel=True)`` on the card, held to the same run on
     the CPU (equal picks, final xi within 2e-6): (a) the Fig. 11 setting of
@@ -106,8 +120,11 @@ FLASH_BF16_ATOL = 2e-2           # one bf16 rounding of the output (tests/test_k
 FLASH_F32_ATOL = 2e-5
 RGLRU_ATOL = 1e-5
 MAMBA_ATOL = 3e-4
+BF16_ROUNDING = 2.0 ** -8         # one bf16 rounding to nearest moves y by at most 2^-8 |y|
 LOGITS_ATOL = 1e-3               # f32 logits, card vs CPU: sums in other orders only
 ARCHS = ("smollm-135m", "recurrentgemma-9b", "falcon-mamba-7b")
+SFU_EX2_PER_CLOCK_SM = 16        # H100 (sm_90) MUFU ex2 results per clock per SM
+H100_SMS = 132
 
 
 def log(msg: str) -> None:
@@ -509,9 +526,9 @@ def _randn(shape, gen, dev, scale=1.0):
     return torch.randn(shape, generator=gen, device=dev).mul_(scale)
 
 
-def flash_inputs(B, S, H, G, hd, dtype, seed, dev):
+def flash_inputs(B, S, T, H, G, hd, dtype, seed, dev):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return tuple(_randn(s, gen, dev).to(dtype) for s in ((B, S, H, hd), (B, S, G, hd), (B, S, G, hd)))
+    return tuple(_randn(s, gen, dev).to(dtype) for s in ((B, S, H, hd), (B, T, G, hd), (B, T, G, hd)))
 
 
 def rglru_inputs(B, S, D, seed, dev):
@@ -527,17 +544,35 @@ def mamba_inputs(B, S, Din, N, seed, dev):
             _randn((B, S, N), gen, dev), _randn((Din,), gen, dev), _randn((B, Din, N), gen, dev))
 
 
-# (label, B, S, H, G, hd, window, dtype, atol): the two path shapes in bf16,
-# then f32 with and without windows, at hd 64 and 256
+def mamba_path_inputs(B, S, Din, N, R, seed, dev):
+    """The SSM block's own scan arguments: bf16 x, f32 dt (the block's
+    softplus adds an f32 bias), B and C as strided views of one bf16
+    (B, S, R + 2N) projection, f32 A and D, no initial state."""
+    x, dt, A, _, _, D, _ = mamba_inputs(B, S, Din, N, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    _, Bm, Cm = _randn((B, S, R + 2 * N), gen, dev).to(torch.bfloat16).split([R, N, N], dim=-1)
+    return x.to(torch.bfloat16), dt, A, Bm, Cm, D, None
+
+
+# (label, B, S, T, H, G, hd, window, dtype, atol): the two path shapes in
+# bf16, bf16 at ragged lengths, a small window, hd 16 / 32 / 128 and
+# query / kv head ratios 1, 3 and 16, then f32 with and without windows,
+# at hd 64 and 256
 FLASH_CASES = (
-    ("smollm path", 64, 127, 9, 3, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
-    ("recurrentgemma path", 64, 127, 16, 1, 256, 2048, torch.bfloat16, FLASH_BF16_ATOL),
-    ("f32", 2, 127, 4, 2, 64, 0, torch.float32, FLASH_F32_ATOL),
-    ("f32", 2, 127, 4, 2, 64, 48, torch.float32, FLASH_F32_ATOL),
-    ("f32", 1, 300, 16, 1, 256, 64, torch.float32, FLASH_F32_ATOL),
+    ("smollm path", 64, 127, 127, 9, 3, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("recurrentgemma path", 64, 127, 127, 16, 1, 256, 2048, torch.bfloat16, FLASH_BF16_ATOL),
+    ("ragged S < T", 2, 37, 45, 4, 2, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("window 5", 3, 37, 37, 6, 2, 16, 5, torch.bfloat16, FLASH_BF16_ATOL),
+    ("hd 32, ratio 1", 2, 70, 70, 4, 4, 32, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("hd 128, ratio 3", 1, 129, 129, 6, 2, 128, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("ratio 16", 2, 127, 127, 16, 1, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("f32", 2, 127, 127, 4, 2, 64, 0, torch.float32, FLASH_F32_ATOL),
+    ("f32", 2, 127, 127, 4, 2, 64, 48, torch.float32, FLASH_F32_ATOL),
+    ("f32", 1, 300, 300, 16, 1, 256, 64, torch.float32, FLASH_F32_ATOL),
 )
 RGLRU_CASES = ((64, 127, 4096), (3, 37, 200))
 MAMBA_CASES = ((64, 127, 8192, 16), (2, 37, 96, 8))
+MAMBA_PATH = (64, 127, 8192, 16, 256)   # falcon-mamba-7b: B, S, d_inner, N, dt_rank
 
 
 def output_error(name: str, got, want, atol: float, label: str) -> float:
@@ -559,21 +594,38 @@ def check_model_kernels(dev) -> dict:
     from repro_torch.kernels import ops, ref
 
     errs = {"flash_attention": 0.0, "rglru_scan": 0.0, "mamba_scan": 0.0}
-    for i, (label, B, S, H, G, hd, w, dtype, atol) in enumerate(FLASH_CASES):
-        args = flash_inputs(B, S, H, G, hd, dtype, seed=10 + i, dev=dev)
-        err = output_error("flash_attention", ops.flash_attention(*args, window=w),
-                           ref.flash_attention_ref(*args, window=w), atol,
-                           f"{label} B={B} S={S} H={H} G={G} hd={hd} window={w} {str(dtype)[6:]}")
+    for i, (label, B, S, T, H, G, hd, w, dtype, atol) in enumerate(FLASH_CASES):
+        args = flash_inputs(B, S, T, H, G, hd, dtype, seed=10 + i, dev=dev)
+        plain = ref.flash_attention_ref(*(a.float() for a in args), window=w)   # f32 plain
+        err = output_error("flash_attention", ops.flash_attention(*args, window=w), plain, atol,
+                           f"{label} B={B} S={S} T={T} H={H} G={G} hd={hd} window={w} "
+                           f"{str(dtype)[6:]}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
     for i, (B, S, D) in enumerate(RGLRU_CASES):
         args = rglru_inputs(B, S, D, seed=20 + i, dev=dev)
         err = output_error("rglru_scan", ops.rglru_scan(*args), ref.rglru_scan_ref(*args),
                            RGLRU_ATOL, f"B={B} S={S} D={D}")
         errs["rglru_scan"] = max(errs["rglru_scan"], err)
+    B, S, Din, N, R = MAMBA_PATH
+    args = mamba_path_inputs(B, S, Din, N, R, seed=29, dev=dev)
+    y, h_last = ops.mamba_scan(*args)
+    # the plain version on an f32 copy of x gives y unrounded: the kernel's
+    # bf16 y is then one rounding to nearest away, within 3e-4 + 2^-8 |y|
+    wy, wh = ref.mamba_scan_ref(args[0].float(), *args[1:])
+    label = f"path case B={B} S={S} Din={Din} N={N} bf16 x/B/C, strided B/C, f32 dt, no h0"
+    err = output_error("mamba_scan", h_last, wh, MAMBA_ATOL, f"{label}: h_last")
+    y_err = (y.float() - wy).abs()
+    y_ok = bool((y_err <= MAMBA_ATOL + BF16_ROUNDING * wy.abs()).all())
+    log(f"  mamba_scan {label}: y max_abs_err={float(y_err.max()):.3g} "
+        f"(y {y.dtype} against the unrounded f32 y, within 3e-4 + 2^-8 |y|: {y_ok})")
+    if not (y_ok and y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())):
+        raise AssertionError(f"mamba_scan disagrees with its plain version at {label}: "
+                             f"y err {float(y_err.max())}")
+    errs["mamba_scan"] = max(errs["mamba_scan"], err, float(y_err.max()))
     for i, (B, S, Din, N) in enumerate(MAMBA_CASES):
         args = mamba_inputs(B, S, Din, N, seed=30 + i, dev=dev)
         err = output_error("mamba_scan", ops.mamba_scan(*args), ref.mamba_scan_ref(*args),
-                           MAMBA_ATOL, f"B={B} S={S} Din={Din} N={N}")
+                           MAMBA_ATOL, f"f32 B={B} S={S} Din={Din} N={N} with h0")
         errs["mamba_scan"] = max(errs["mamba_scan"], err)
     return errs
 
@@ -770,16 +822,66 @@ def sdpa_ms(q, k, v):
                                                             enable_gqa=True))[0]
 
 
+# The earlier kernels' device ms at the same shapes, as PERF.md section 6
+# records them (NVIDIA H100 80GB HBM3, 700.00 W): flash v2 (f32 products on
+# the CUDA cores) per path shape, and mamba_scan v1 (accurate expf, f32 in
+# and out, the casts outside the kernel).
+EARLIER_MS = {"flash_attention smollm path": 0.20470094999999994,
+              "flash_attention recurrentgemma path": 1.4304699499999998,
+              "mamba_scan": 0.7823275999999999}
+EARLIER_FROM = "recorded in PERF.md section 6 (not measured in this run)"
+
+
+def earlier_kernels(rows: list) -> dict:
+    """Each redesigned kernel's device ms in this run beside its earlier
+    version's recorded ms."""
+    now = {f"flash_attention {s['shape'].split(':')[0]}": s["ms"]
+           for r in rows if r["name"] == "flash_attention" for s in r["by_shape"]}
+    now.update({r["name"]: r["ms"] for r in rows if r["name"] == "mamba_scan"})
+    return {k: {"ms": now[k], "earlier_ms": v, "earlier_from": EARLIER_FROM}
+            for k, v in EARLIER_MS.items()}
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def mamba_bound(args):
+    """(ms, by, detail) of one path-case scan: x and dt read and y written
+    in their dtype, h_last written in f32, the B and C columns, A and D
+    read once; against 5 f32 flops per (t, d, n) on the CUDA cores and one
+    ``ex2`` per (t, d, n) at the SFU's 16 a clock per SM at the maximum SM
+    clock. The largest of the three bounds it. The ``ex2`` term is the
+    bound of a design that takes every exponential on the SFU: one that
+    computed some by polynomial on the FMA pipes could go below it."""
+    x, dt, A, Bm, Cm, D, _ = args
+    B, S, Din = x.shape
+    N = A.shape[1]
+    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * dt.element_size() + B * Din * N * 4
+              + 2 * B * S * N * Bm.element_size() + A.numel() * 4 + D.numel() * D.element_size())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = 5.0 * x.numel() * N / F32_OPS_PER_S * 1e3
+    clock = max_sm_clock_hz()
+    t_ex2 = x.numel() * N / (SFU_EX2_PER_CLOCK_SM * H100_SMS * clock) * 1e3
+    detail = {"bytes": nbytes, "bytes_ms": t_bytes, "f32_flops_ms": t_flops,
+              "ex2": x.numel() * N, "ex2_ms": t_ex2, "max_sm_clock_mhz": clock / 1e6}
+    return max(t_bytes, t_flops, t_ex2), ("bytes" if t_bytes >= max(t_flops, t_ex2) else "operations"), detail
+
+
 def time_model_kernels(launches: dict, errs: dict) -> list:
-    """Each new kernel at the LM-arm route's shapes (B=64 queries, S=127):
-    device ms (profiler), plain ms, bound ms and the library yardstick."""
+    """Each model kernel at the LM-arm route's shapes and dtypes (B=64
+    queries, S=127): device ms (profiler), plain ms, bound ms and the
+    library yardstick."""
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda", 0)
     rows = []
     flash_shapes = []
-    for label, B, S, H, G, hd, w, dtype, _ in FLASH_CASES[:2]:
-        args = flash_inputs(B, S, H, G, hd, dtype, seed=40, dev=dev)
+    for label, B, S, T, H, G, hd, w, dtype, _ in FLASH_CASES[:2]:
+        args = flash_inputs(B, S, T, H, G, hd, dtype, seed=40, dev=dev)
         ms, ms_source = device_ms(lambda: ops.flash_attention(*args, window=w))
         plain_ms, _ = device_ms(lambda: ref.flash_attention_ref(*args, window=w), n=5)
         b_ms, b_by = bound_ms(*flash_bound(args[0], args[1], w), BF16_OPS_PER_S)
@@ -796,29 +898,33 @@ def time_model_kernels(launches: dict, errs: dict) -> list:
         **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shape": main["shape"], "by_shape": flash_shapes,
     })
-    for name, mk, fn, plain, shape, nbytes_ops, replaces in (
-        ("rglru_scan", lambda: rglru_inputs(64, 127, 4096, seed=41, dev=dev),
-         ops.rglru_scan, ref.rglru_scan_ref, "B=64 S=127 D=4096",
-         lambda a: ((3 * a[0].numel() + 2 * a[2].numel()) * 4, 3.0 * a[0].numel()),
-         "src/repro/kernels/rglru_scan.py:47"),
-        ("mamba_scan", lambda: mamba_inputs(64, 127, 8192, 16, seed=42, dev=dev),
-         ops.mamba_scan, ref.mamba_scan_ref, "B=64 S=127 Din=8192 N=16",
-         lambda a: ((3 * a[0].numel() + 2 * a[6].numel() + a[2].numel() + a[3].numel()
-                     + a[4].numel() + a[5].numel()) * 4,
-                    5.0 * a[0].numel() * a[2].shape[1] + 3.0 * a[0].numel()),
-         "src/repro/kernels/mamba_scan.py:58"),
-    ):
-        args = mk()
-        ms, ms_source = device_ms(lambda: fn(*args))
-        plain_ms, _ = device_ms(lambda: plain(*args), n=3)
-        b_ms, b_by = bound_ms(*nbytes_ops(args))
-        rows.append({
-            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": shape, "ms_source": ms_source,
-            "call_ms": median_ms(lambda: fn(*args)),
-        })
+    args = rglru_inputs(64, 127, 4096, seed=41, dev=dev)
+    b_ms, b_by = bound_ms((3 * args[0].numel() + 2 * args[2].numel()) * 4, 3.0 * args[0].numel())
+    rows.append({
+        "name": "rglru_scan", "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:47", "launches": launches["rglru_scan"],
+        "max_abs_err": errs["rglru_scan"], "ms": device_ms(lambda: ops.rglru_scan(*args))[0],
+        "plain_ms": device_ms(lambda: ref.rglru_scan_ref(*args), n=3)[0], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None, "shape": "B=64 S=127 D=4096",
+        "call_ms": median_ms(lambda: ops.rglru_scan(*args)),
+    })
+    B, S, Din, N, R = MAMBA_PATH
+    args = mamba_path_inputs(B, S, Din, N, R, seed=42, dev=dev)
+    b_ms, b_by, b_detail = mamba_bound(args)
+    f32_args = mamba_inputs(B, S, Din, N, seed=43, dev=dev)
+    rows.append({
+        "name": "mamba_scan", "route": "cuda", "source": "src/repro_torch/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:58", "launches": launches["mamba_scan"],
+        "max_abs_err": errs["mamba_scan"], "ms": device_ms(lambda: ops.mamba_scan(*args))[0],
+        "plain_ms": device_ms(lambda: ref.mamba_scan_ref(*args), n=3)[0], "bound_ms": b_ms,
+        "bound_by": b_by, "bound_detail": b_detail, "library_ms": None,
+        "bound_note": "operations: every exp on the SFU (16 ex2 a clock per SM), the rate of "
+                      "this design; exps partly on the FMA pipes could go below it",
+        "shape": f"B={B} S={S} Din={Din} N={N} bf16 x/B/C (B, C strided views), f32 dt, no h0",
+        "call_ms": median_ms(lambda: ops.mamba_scan(*args)),
+        "f32_ms": device_ms(lambda: ops.mamba_scan(*f32_args))[0],
+        "f32_shape": f"B={B} S={S} Din={Din} N={N} f32, contiguous B/C, with h0",
+    })
     return rows
 
 
@@ -997,6 +1103,13 @@ def main() -> int:
     phases["build_s"] = time.perf_counter() - t0
     log(f"[2 build] {len(paths)} kernels in {phases['build_s']:.1f} s: "
         + ", ".join(p.name for p in paths.values()))
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(paths["flash_attention"])],
+                          capture_output=True, text=True, check=True).stdout
+    mma = sum(1 for line in sass.splitlines() if "HGMMA" in line or "HMMA" in line)
+    log(f"  tensor-core instructions (HGMMA|HMMA) in {paths['flash_attention'].name}: {mma}")
+    if mma == 0:
+        raise AssertionError("the flash_attention library holds no tensor-core instruction")
 
     t0 = time.perf_counter()
     log("[3 kernels vs plain, on the card]")
@@ -1071,8 +1184,10 @@ def main() -> int:
         row["lm_route_launches"] = lm["launches"][row["name"]]
     t0 = time.perf_counter()
     log("[10 model kernels timed at the LM-arm route's shapes]")
-    kernels += time_model_kernels(lm["launches"], errs)
+    model_rows = time_model_kernels(lm["launches"], errs)
+    kernels += model_rows
     phases["model_timing_s"] = time.perf_counter() - t0
+    log(f"[earlier kernels] {json.dumps(earlier_kernels(model_rows))}")
     log(f"[lm arms] {json.dumps({k: lm[k] for k in ('forward_ms', 'init_s', 'main_s', 'breakdown')})}")
 
     ops.reset_launch_counts()

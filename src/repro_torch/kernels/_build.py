@@ -28,8 +28,9 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# entry point -> ctypes argument types (pointers and the stream as c_void_p)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# entry point -> ctypes argument types (pointers and the stream as c_void_p,
+# strides as c_longlong)
 KERNELS = {
     "belief_aggregate": (
         "belief_aggregate_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -46,7 +47,8 @@ KERNELS = {
     ),
     "rglru_scan": ("rglru_scan_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "mamba_scan": (
-        "mamba_scan_launch", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "mamba_scan_launch",
+        [_P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
 }
 

@@ -16,21 +16,37 @@ out once: at the serving path's shapes (B=64 queries, S=T=127 tokens, bf16)
 that is about 25 MB for smollm-135m (H=9, G=3, hd=64), 7.5 us at 3.35 TB/s,
 and about 142 MB for recurrentgemma-9b (H=16, G=1, hd=256), 42 us; the
 causal FLOPs, 1.2 and 8.5 GFLOP, take 1.2 and 8.6 us at 989 TFLOP/s. The
-TPU kernel tiled (512, 512) blocks onto the MXU; this first Hopper kernel
-keeps every byte to one pass but does the products on the CUDA cores.
+TPU kernel tiled (512, 512) blocks onto the MXU with bf16 operands and f32
+accumulation, rounding p to v's dtype before the PV product.
 
-Design: one block per (batch, head, 8 query rows), one warp per row. The
-block loads only the key tiles its rows can see (32 keys of k and v,
-staged in shared memory as f32 by an unrolled loop, 74 KB at hd=256), so
-tiles above the diagonal or outside the window cost nothing. Within a tile
-the lanes go over the keys — lane j scores key j against the row's query —
-and the warp takes one online-softmax step per tile in f32 (tile max and
-sum by warp shuffle, one ``exp`` per lane); then the lanes go back over the
-head dims (hd/32 accumulators each, in registers — hd=256 does not spill)
-to add ``p_j v_j``. It takes any S and T (the ragged tail is masked in the
-kernel, unlike the Pallas wrapper, which needs block multiples), any
-``window >= 0`` and hd in {16, 32, 64, 128, 256}. A row that sees no key
-writes 0, as the Pallas kernel does.
+The launch branches on dtype, explicitly:
+
+- **bf16 (v3, the LM arms' path):** both products on the tensor cores
+  by ``wgmma.mma_async`` (bf16 in, f32 accumulate). One block, one
+  warpgroup, per (batch, head, 64 query rows). Q and K/V tiles of 64 keys
+  (32 at hd=256, so that two blocks fit on an SM) are staged as bf16 by
+  ``cp.async`` in the swizzled layout wgmma reads (128-byte rows; 32 and
+  64 bytes at hd 16 and 32), K/V double-buffered, walking only the tiles
+  the rows can see. S = Q K^T reads both operands from shared memory; the
+  online softmax stays in the score accumulators (row max and sum by
+  shuffles among the four threads of a row, ``exp2`` on scores pre-scaled
+  by ``scale * log2(e)``); P is rounded to bf16, as the TPU kernel rounds
+  it, and fed from registers as the A operand of ``O += P V``. The grid
+  runs all query heads of one (batch, kv head) together, so K/V come from
+  L2. The block's load of Q and its store of O take as long as its tiles
+  at the path shapes (the phases line up across the card and saturate
+  device memory in turn): that, not the products, is what keeps it above
+  its byte bound.
+- **f32 (v2):** the products on the CUDA cores, one warp per query row
+  over 32-key f32 tiles (lanes over keys for the scores, over head dims for
+  ``p_j v_j``). f32 is not on the serving path; it serves the f32 checks
+  and the f32 one-unit models.
+
+Both take any S and T (the ragged tail is masked in the kernel, unlike the
+Pallas wrapper, which needs block multiples), any ``window >= 0``, hd in
+{16, 32, 64, 128, 256} and H a multiple of G. A row that sees no key
+writes 0, as the Pallas kernel does. No path routes a call to the other
+version or to the plain one: a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -61,6 +77,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = Tru
         raise ValueError(f"flash_attention takes {DTYPES}, got {q.dtype}")
     if max(B, H) > 65535:
         raise ValueError(f"B={B} and H={H} must each be at most 65535 (grid limit)")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bf16 q, k and v must start on 16 bytes (the kernel copies 16-byte pieces)")
     dev = q.device
     for name, t, shape in (("q", q, (B, S, H, hd)), ("k", k, (B, T, G, hd)),
                            ("v", v, (B, T, G, hd))):
@@ -70,6 +88,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = Tru
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
             )
     out = torch.empty_like(q)
+    # explicit dtype branch: bf16 -> v3 (tensor cores), f32 -> v2 (CUDA cores)
     fn = _build.entry("flash_attention")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

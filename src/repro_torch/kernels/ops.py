@@ -112,13 +112,20 @@ def rglru_scan(log_a, gated, h0):
 rglru_scan.launches = 0
 
 
-def mamba_scan(x, dt, A, Bmat, Cmat, Dskip, h0):
-    """Fused Mamba-1 selective scan in f32: ``(y (B, S, Din), h_last
-    (B, Din, N))``."""
-    args = [t.to(torch.float32).contiguous() for t in (x, dt, A, Bmat, Cmat, Dskip, h0)]
+def mamba_scan(x, dt, A, Bmat, Cmat, Dskip, h0=None):
+    """Fused Mamba-1 selective scan: ``(y (B, S, Din) in x's dtype, h_last
+    (B, Din, N) f32)``. x, B and C in the block's dtype (bf16 or f32; B and
+    C may be strided views), dt in f32 as the block gives it (another
+    float dtype is widened here, exactly), the recurrence in f32,
+    ``h0=None`` a zero state. On the card nothing is cast or copied around
+    the launch of the block's own tensors."""
     if _device_kind(x) == "cpu":
-        return ref.mamba_scan_ref(*args)
-    out = _mamba_scan.launch(*args)
+        return ref.mamba_scan_ref(x, dt, A, Bmat, Cmat, Dskip, h0)
+    out = _mamba_scan.launch(
+        x.contiguous(), dt.to(torch.float32).contiguous(), A.to(torch.float32).contiguous(),
+        Bmat, Cmat, Dskip,
+        None if h0 is None else h0.to(torch.float32).contiguous(),
+    )
     mamba_scan.launches += 1
     return out
 

@@ -54,13 +54,20 @@ def rglru_scan_ref(log_a, gated, h0):
     return torch.stack(hs, dim=1), h
 
 
-def mamba_scan_ref(x, dt, A, Bmat, Cmat, Dskip, h0):
-    """Sequential Mamba-1 scan, one timestep at a time: ``(y (B, S, Din),
-    h_last (B, Din, N))``. Never forms a (B, S, Din, N) tensor — the JAX
-    package's chunked form would, ~4 GB per chunk at full width."""
-    h, ys = h0, []
+def mamba_scan_ref(x, dt, A, Bmat, Cmat, Dskip, h0=None):
+    """Sequential Mamba-1 scan, one timestep at a time, in f32: ``(y (B, S,
+    Din) in x's dtype, h_last (B, Din, N) f32)``. The inputs are widened to
+    f32 (B and C may be strided views), ``h0=None`` starts from zeros and y
+    is rounded to x's dtype once, as the JAX package's ``selective_scan``
+    does. Never forms a (B, S, Din, N) tensor — the JAX package's chunked
+    form would, ~4 GB per chunk at full width."""
+    f32 = lambda t: t.to(torch.float32)
+    x32, dt32, A32, B32, C32, D32 = map(f32, (x, dt, A, Bmat, Cmat, Dskip))
+    h = (torch.zeros((x.shape[0], x.shape[2], A.shape[1]), dtype=torch.float32, device=x.device)
+         if h0 is None else f32(h0))
+    ys = []
     for t in range(x.shape[1]):
-        dt_t, x_t = dt[:, t], x[:, t]                                  # (B, Din)
-        h = torch.exp(dt_t[..., None] * A) * h + (dt_t * x_t)[..., None] * Bmat[:, t, None, :]
-        ys.append((h * Cmat[:, t, None, :]).sum(-1) + Dskip * x_t)
-    return torch.stack(ys, dim=1), h
+        dt_t, x_t = dt32[:, t], x32[:, t]                              # (B, Din)
+        h = torch.exp(dt_t[..., None] * A32) * h + (dt_t * x_t)[..., None] * B32[:, t, None, :]
+        ys.append((h * C32[:, t, None, :]).sum(-1) + D32 * x_t)
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -53,10 +53,8 @@ def selective_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Selective scan from ``h0`` (zeros if None). Returns (y (B, S, Din) in
     x's dtype, h_last (B, Din, N) f32). ``chunk`` is accepted for the JAX
-    signature and has no effect: the kernel is the fused scan."""
+    signature and has no effect: the kernel is the fused scan. The block's
+    tensors go to the kernel as they are — bf16 or f32, B and C as views of
+    their split — and it widens, scans and rounds y itself."""
     del chunk
-    B, _, Din = x.shape
-    if h0 is None:
-        h0 = torch.zeros((B, Din, A.shape[1]), dtype=torch.float32, device=x.device)
-    y, h_last = ops.mamba_scan(x, dt, A, Bmat, Cmat, Dskip, h0)
-    return y.to(x.dtype), h_last
+    return ops.mamba_scan(x, dt, A, Bmat, Cmat, Dskip, h0)

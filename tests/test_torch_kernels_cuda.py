@@ -112,10 +112,18 @@ def test_planner_on_card_matches_cpu_bitwise(cuda):
 
 
 # (B, S, T, H, G, hd, window, dtype, atol): the serving path's two shapes in
-# bf16, then f32 cases with windows, ragged lengths and every head dim
+# bf16 (the tensor-core kernel), bf16 at ragged lengths, a small window,
+# every head dim and query/kv head ratios 1, 2, 3 and 16, then f32 cases
+# (the CUDA-core kernel) with windows, ragged lengths and every head dim
 FLASH = [
     (64, 127, 127, 9, 3, 64, 0, torch.bfloat16, 2e-2),
     (64, 127, 127, 16, 1, 256, 2048, torch.bfloat16, 2e-2),
+    (2, 37, 45, 4, 2, 64, 0, torch.bfloat16, 2e-2),
+    (3, 37, 37, 6, 3, 16, 5, torch.bfloat16, 2e-2),
+    (2, 70, 70, 4, 4, 32, 0, torch.bfloat16, 2e-2),
+    (1, 129, 129, 6, 2, 128, 0, torch.bfloat16, 2e-2),
+    (1, 127, 127, 16, 1, 64, 0, torch.bfloat16, 2e-2),
+    (1, 300, 300, 16, 1, 256, 64, torch.bfloat16, 2e-2),
     (2, 127, 127, 4, 2, 64, 0, torch.float32, 2e-5),
     (2, 127, 127, 4, 2, 64, 48, torch.float32, 2e-5),
     (1, 300, 300, 16, 1, 256, 64, torch.float32, 2e-5),
@@ -145,17 +153,19 @@ def test_flash_attention_matches_plain(cuda, B, S, T, H, G, hd, window, dtype, a
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
-def test_flash_attention_rows_without_keys_are_zero(cuda):
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_flash_attention_rows_without_keys_are_zero(cuda, dtype, atol):
     """S > T with a window leaves late rows no visible key: the kernel writes
     0 there, as the Pallas kernel and the blocked path do."""
     from repro_torch.models.attention import blocked_attention
 
-    q, k, v = (_normal(s, i, cuda) for i, s in enumerate([(2, 40, 4, 32), (2, 8, 2, 32), (2, 8, 2, 32)]))
+    q, k, v = (_normal(s, i, cuda, dtype) for i, s in enumerate([(2, 40, 4, 32), (2, 8, 2, 32), (2, 8, 2, 32)]))
     got = ops.flash_attention(q, k, v, causal=True, window=4)
-    want = blocked_attention(q, k, v, causal=True, window=4, block_kv=8)
+    want = blocked_attention(q.float(), k.float(), v.float(), causal=True, window=4, block_kv=8)
     torch.cuda.synchronize()
+    assert got.dtype == dtype
     assert torch.count_nonzero(got[:, 11:]) == 0
-    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=atol)
 
 
 def test_flash_attention_rejects_unsupported_head_dim(cuda):
@@ -193,6 +203,67 @@ def test_mamba_scan_matches_plain(cuda, B, S, Din, N):
     assert ops.mamba_scan.launches == before + 1
     torch.testing.assert_close(y, wy, rtol=0, atol=3e-4)
     torch.testing.assert_close(h_last, wh, rtol=0, atol=3e-4)
+
+
+# (B, S, Din, N, R): the falcon-mamba path case (R + 2N = 288), a ragged
+# shape, and Din whose bf16 rows do not fill 16-byte pieces (plain loads)
+MAMBA_BF16 = [(64, 127, 8192, 16, 256), (2, 37, 96, 8, 6), (1, 70, 130, 5, 3)]
+
+
+def _mamba_block_inputs(B, S, Din, N, R, device):
+    """bf16 x, f32 dt and B, C as strided views of one bf16 (B, S, R + 2N)
+    projection, as the SSM block splits it; f32 A and D."""
+    x = _normal((B, S, Din), S, device, torch.bfloat16)
+    dt = _normal((B, S, Din), S + 1, device, scale=0.3).abs() + 0.01
+    proj = _normal((B, S, R + 2 * N), S + 3, device, torch.bfloat16)
+    _, Bm, Cm = proj.split([R, N, N], dim=-1)
+    A = -_normal((Din, N), S + 2, device, scale=0.5).abs() - 0.5
+    return x, dt, A, Bm, Cm, _normal((Din,), S + 5, device)
+
+
+@pytest.mark.parametrize("B,S,Din,N,R", MAMBA_BF16)
+def test_mamba_scan_bf16_strided_no_h0_matches_plain(cuda, B, S, Din, N, R):
+    args = _mamba_block_inputs(B, S, Din, N, R, cuda)
+    assert not args[3].is_contiguous()
+    before = ops.mamba_scan.launches
+    y, h_last = ops.mamba_scan(*args, None)
+    # the plain version on an f32 copy of x leaves y unrounded
+    wy, wh = ref.mamba_scan_ref(args[0].float(), *args[1:], None)
+    torch.cuda.synchronize()
+    assert ops.mamba_scan.launches == before + 1
+    assert y.dtype == torch.bfloat16 and h_last.dtype == torch.float32
+    # h_last to the scan's tolerance; the bf16 y to it plus one rounding to
+    # nearest of the unrounded y (at most 2^-8 |y|)
+    torch.testing.assert_close(h_last, wh, rtol=0, atol=3e-4)
+    err = (y.float() - wy).abs()
+    assert bool((err <= 3e-4 + 2.0 ** -8 * wy.abs()).all()), float(err.max())
+
+
+def test_mamba_scan_widens_a_bf16_dt(cuda):
+    """The kernel takes dt in f32 only; the wrapper widens a bf16 dt, which
+    is exact, so the result is bit for bit that of the f32 copy."""
+    x, dt, A, Bm, Cm, D = _mamba_block_inputs(2, 37, 96, 8, 6, cuda)
+    dt16 = dt.to(torch.bfloat16)
+    got = ops.mamba_scan(x, dt16, A, Bm, Cm, D)
+    want = ops.mamba_scan(x, dt16.float(), A, Bm, Cm, D)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_mamba_scan_bf16_makes_no_f32_copy(cuda):
+    """On the bf16 path the wrapper allocates y (bf16), h_last and D in f32,
+    and nothing of x's size in f32: no widened copy of x or y, and dt (f32,
+    as the block gives it) goes in as it is."""
+    args = _mamba_block_inputs(8, 127, 4096, 16, 256, cuda)
+    ops.mamba_scan(*args)                   # builds the kernel first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    y, h_last = ops.mamba_scan(*args)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(cuda) - base
+    assert grown < args[0].numel() * 4, (grown, args[0].numel() * 4)
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "recurrentgemma-9b", "falcon-mamba-7b"])

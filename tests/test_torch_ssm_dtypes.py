@@ -1,0 +1,139 @@
+"""The Mamba scan at the SSM block's own dtypes, on the CPU: the port's
+``ops.mamba_scan`` takes bf16 ``x``, ``B`` and ``C`` (``B`` and ``C``
+strided views of one ``(B, S, R + 2N)`` projection, as the block splits
+it), ``dt`` in f32 (the block's own ``dt`` is f32: its softplus adds an
+f32 bias; a bf16 ``dt`` is widened by the wrapper) and ``h0=None``,
+widens to f32, scans and rounds ``y`` to bf16 once — held against the
+JAX package's ``selective_scan`` on the same inputs, which does exactly
+those casts. Tolerances: ``h_last`` 3e-4 (the Mamba scan's,
+``tests/test_kernels.py``); the bf16 ``y`` 3e-4 plus one rounding to
+nearest (at most ``2**-8 * |y|``) of JAX's unrounded f32 ``y``, which
+``selective_scan`` returns for an f32 copy of ``x``.
+"""
+import jax
+import jax.experimental
+
+if not hasattr(jax.experimental, "enable_x64"):      # removed in jax 0.9
+    jax.experimental.enable_x64 = jax.enable_x64
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import LM as JaxLM
+from repro.models import ssm as jssm
+from repro_torch import configs, convert
+from repro_torch.kernels import ops
+from repro_torch.models import ssm
+
+MAMBA_ATOL = 3e-4
+BF16_ROUNDING = 2.0 ** -8     # one rounding to nearest moves y by at most 2^-8 |y|
+
+
+def _bf16_pair(x: np.ndarray):
+    """The same bf16 values as a jax array and a CPU tensor, bit for bit."""
+    j = jnp.asarray(x, jnp.bfloat16)
+    bits = np.asarray(j).view(np.uint16).copy()
+    return j, torch.from_numpy(bits).view(torch.bfloat16)
+
+
+def _block_inputs(B, S, Din, N, R, seed, dt_f32=False):
+    """bf16 x, dt (f32 if ``dt_f32``) and the bf16 (B, S, R + 2N)
+    projection whose last 2N columns are B and C; f32 A (negative) and D."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (B, S, Din))
+    dt = np.abs(rng.normal(0, 0.3, (B, S, Din))) + 0.01
+    proj = rng.normal(0, 1, (B, S, R + 2 * N))
+    A = -np.abs(rng.normal(1, 0.5, (Din, N))).astype(np.float32)
+    D = rng.normal(0, 1, (Din,)).astype(np.float32)
+    dt_pair = (jnp.asarray(dt, jnp.float32), torch.from_numpy(dt.astype(np.float32))) if dt_f32 \
+        else _bf16_pair(dt)
+    return _bf16_pair(x), dt_pair, _bf16_pair(proj), A, D
+
+
+# (B, S, Din, N, R, dt in f32): the block's dtypes (dt f32), and a bf16 dt the wrapper widens
+SHAPES = [(2, 37, 96, 8, 6, True), (1, 64, 128, 16, 8, True), (1, 64, 128, 16, 8, False),
+          (3, 20, 40, 5, 3, False)]
+
+
+@pytest.mark.parametrize("B,S,Din,N,R,dt_f32", SHAPES)
+def test_bf16_strided_scan_matches_jax_selective_scan(B, S, Din, N, R, dt_f32):
+    (xj, xt), (dj, dtt), (pj, pt), A, D = _block_inputs(B, S, Din, N, R, seed=B + S + Din,
+                                                        dt_f32=dt_f32)
+    _, Bt, Ct = pt.split([R, N, N], dim=-1)
+    assert not Bt.is_contiguous() and Bt.stride(2) == 1      # the block's views, uncopied
+    y, h_last = ops.mamba_scan(xt, dtt, torch.from_numpy(A), Bt, Ct, torch.from_numpy(D), None)
+    assert y.dtype == torch.bfloat16 and h_last.dtype == torch.float32
+    assert y.shape == (B, S, Din) and h_last.shape == (B, Din, N)
+    scan = jax.jit(jssm.selective_scan, static_argnames="chunk")
+    jargs = (dj, jnp.asarray(A), pj[..., R:R + N], pj[..., R + N:], jnp.asarray(D))
+    assert scan(xj, *jargs, chunk=16)[0].dtype == jnp.bfloat16    # JAX rounds y to x's dtype
+    wy, wh = scan(xj.astype(jnp.float32), *jargs, chunk=16)       # ... and here leaves it f32
+    wy = np.asarray(wy)
+    np.testing.assert_array_less(np.abs(y.float().numpy() - wy),
+                                 MAMBA_ATOL + BF16_ROUNDING * np.abs(wy))
+    np.testing.assert_allclose(h_last.numpy(), np.asarray(wh), rtol=0, atol=MAMBA_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_h0_none_equals_zero_h0_bitwise(dtype):
+    (_, xt), (_, dtt), (_, pt), A, D = _block_inputs(2, 29, 24, 4, 2, seed=5)
+    x, dt, proj = xt.to(dtype), dtt.to(dtype), pt.to(dtype)
+    _, Bt, Ct = proj.split([2, 4, 4], dim=-1)
+    A, D = torch.from_numpy(A), torch.from_numpy(D)
+    got = ops.mamba_scan(x, dt, A, Bt, Ct, D, None)
+    want = ops.mamba_scan(x, dt, A, Bt, Ct, D, torch.zeros(2, 24, 4))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_bf16_scan_equals_f32_copies_then_one_rounding():
+    """The new interface is the old function: widening inside the scan and
+    rounding y once gives, bit for bit, what casting every input to an f32
+    copy, scanning from a zero state and casting y back gave."""
+    (_, x), (_, dt), (_, proj), A, D = _block_inputs(2, 41, 64, 16, 4, seed=9)
+    _, Bt, Ct = proj.split([4, 16, 16], dim=-1)
+    A, D = torch.from_numpy(A), torch.from_numpy(D)
+    y, h_last = ops.mamba_scan(x, dt, A, Bt, Ct, D, None)
+    f32 = [t.float().contiguous() for t in (x, dt, A, Bt, Ct, D)]
+    wy, wh = ops.mamba_scan(*f32, torch.zeros(2, 64, 16))
+    assert torch.equal(y, wy.to(torch.bfloat16)) and torch.equal(h_last, wh)
+
+
+def test_selective_scan_passes_block_tensors_through():
+    """``selective_scan`` returns y in x's dtype straight from the wrapper,
+    with the same values as the wrapper."""
+    (_, x), (_, dt), (_, proj), A, D = _block_inputs(1, 17, 32, 8, 2, seed=11)
+    _, Bt, Ct = proj.split([2, 8, 8], dim=-1)
+    A, D = torch.from_numpy(A), torch.from_numpy(D)
+    got = ssm.selective_scan(x, dt, A, Bt, Ct, D, h0=None, chunk=8)
+    want = ops.mamba_scan(x, dt, A, Bt, Ct, D)
+    assert got[0].dtype == torch.bfloat16
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_bf16_falcon_mamba_smoke_forward_matches_jax():
+    """The ``SMOKE`` falcon-mamba in bf16, the same weights on both
+    packages. Every bf16 op rounds on both sides, and XLA and PyTorch do
+    not round at the same places (fused elementwise chains, matmul
+    blocking), so the logits differ by a few bf16 ulps: measured with both
+    CPU backends, 0.109 at |logit| <= 4.6, median 2 ulps. The tolerance is
+    5% of the largest logit; a wrong scan (a lost rounding, a misread
+    stride, a wrong state) moves logits by order 1."""
+    arch = "falcon-mamba-7b"
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), dtype="bfloat16")
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="bfloat16")
+    params = jax.jit(JaxLM(jcfg).init)(jax.random.key(0))
+    tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 63)).astype(np.int32)
+    want = np.asarray(jax.jit(JaxLM(jcfg).forward)(params, jnp.asarray(tokens)).astype(jnp.float32))
+    model = convert.lm_from_jax(jax.tree.map(np.asarray, params), cfg, "cpu")
+    with torch.inference_mode():
+        got = model(torch.from_numpy(tokens).long())
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=0.05 * np.abs(want).max())
