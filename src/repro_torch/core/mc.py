@@ -384,6 +384,8 @@ class GroupedXiEstimator:
         )
         self.empty = torch.as_tensor(empty, device=self.device)
         self.theta_f = torch.as_tensor(thetas.astype(np.float64), device=self.device)
+        # the kernel's f32 theta, cast once (integers below 2^24: exact)
+        self.theta_f32 = self.theta_f.to(torch.float32)
 
     def __call__(self, masks) -> torch.Tensor:
         """(G, C, L) binary masks -> (G, C) xi estimates (f64 tensor)."""
@@ -393,7 +395,7 @@ class GroupedXiEstimator:
 
             vals = kernel_ops.mc_correctness_grouped(
                 self.responses, masks, self.log_weights, self.empty,
-                self.valid, self.theta_f.to(torch.float32), self.num_classes,
+                self.valid, self.theta_f32, self.num_classes,
             )
             return vals.to(torch.float64)
         return _masked_xi_core(

@@ -4,8 +4,9 @@ Each source in ``src/repro_torch/csrc/`` has a plain C entry point that
 launches its kernel on a given stream and returns ``cudaGetLastError()``.
 :func:`build` compiles every source with ``nvcc`` into its own shared
 library under ``build/repro_torch_kernels/`` at the repository root — one
-``nvcc`` per source, all started together — named by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one is reused.
+``nvcc`` per source, all started together — named by a hash of the source,
+every header in ``csrc/`` and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 Nothing is built when a module is imported: only the first launch on a
 CUDA tensor (or an explicit :func:`build`) calls the compiler.
 """
@@ -36,11 +37,11 @@ KERNELS = {
         "belief_aggregate_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     ),
     "mc_correctness": (
-        "mc_correctness_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "mc_correctness_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
     "mc_correctness_grouped": (
         "mc_correctness_grouped_launch",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
     "flash_attention": (
         "flash_attention_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -70,8 +71,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where kernel ``name``'s library lives: named by a hash of its source,
+    of every ``csrc/*.cuh`` (name and bytes: a source may include any) and
+    of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,7 +1,8 @@
 """Hopper kernels: Monte-Carlo correctness estimation (paper Lemma 4).
 
-Two kernels, each replacing a Pallas TPU kernel of
-``src/repro/kernels/mc_correctness.py``:
+Two entry points, each replacing a Pallas TPU kernel of
+``src/repro/kernels/mc_correctness.py``, over one kernel body
+(``src/repro_torch/csrc/mc_tie_hist.cuh``):
 
 * ``mc_correctness`` (:func:`launch`) replaces ``mc_correctness_pallas``:
   the xi of C candidate masks over one pool's theta shared draws, the
@@ -19,34 +20,40 @@ Two kernels, each replacing a Pallas TPU kernel of
 Per candidate c: ``xi = sum_{valid t} [class 0 within TIE_TOL of the max
 belief] / ties / theta``, where a draw's beliefs sum the log weights of the
 masked arms that answered each class and empty classes show the empty
-belief. The TPU kernels contracted one-hot cubes on the MXU and accumulated
-tiles across a sequential grid (the single-pool one padded theta with -1
-rows and subtracted their credit); here the votes are a compare-and-add
-loop per draw, with no padding.
+belief. The two are one function: the grouped plain version at G=1, with
+every draw valid and theta = T, is the single-pool one. The TPU kernels
+contracted one-hot cubes on the MXU and accumulated tiles across a
+sequential grid; here each draw's votes are compared in registers, with no
+padding.
 
-What bounds them on an H100: bytes, and at the path's shapes they are
-launch-bound. ``mc_correctness`` at the serve defaults (T=16843 draws, L=12
-arms, C=12 candidates) reads about 0.8 MB, 0.24 us at 3.35 TB/s; the work,
-``C * T * (L + 3K)`` compares and adds, is far below the card's 67 TFLOP/s
-f32 rate. The grouped kernel at the serial planner's shape (G=1, C=3,
-T=16384, L=12) reads about 0.85 MB, 0.25 us.
+What bounds them on an H100: bytes, and at the path's shapes a single
+launch. ``mc_correctness`` at GreedyLLM's serve-default shape (T=8471 draws,
+L=12 arms, C=12 candidates) reads about 0.4 MB, 0.12 us at 3.35 TB/s; the
+grouped kernel at the serial planner's shape (G=1, C=3, T=16384, L=12)
+about 0.85 MB, 0.25 us. Both lie below the time of one launch.
 
-Design of ``mc_correctness``: a grid of (ceil(T / 256), C) blocks, one
-thread per (draw, candidate), so even one candidate spreads over T / 256
-SMs. Each thread's K-vector of beliefs lives in local memory (indexed by the
-response class, K up to 128). A draw contributes one count to a tie-count
-histogram bin; warps count bins with ballots and each block writes its
-integer histogram to a scratch tensor; a second launch sums the blocks in
-order in 64-bit integers and does the plain version's f64 combine — so the
-kernel equals its plain version bit for bit, on every run.
+Design (one launch each, bitwise their plain versions):
 
-Design of ``mc_correctness_grouped``: one block of 512 threads per (g, c);
-threads stride over the draws; per-thread f32 partials go through a
-fixed-shape shared-memory tree and one division by ``theta_g`` — no
-atomics, so the f32 sum order never changes between runs. That order
-differs from the plain version's exact integer sums, so the two agree to
-within f32 rounding (the tests hold them to 2e-6). With only G*C blocks it
-leaves most SMs idle at G=1.
+* One thread-block cluster per (g, c): 16 blocks where all G * C clusters
+  of 16 are resident on the card at once, else 8; each block sized to its
+  share of the draws (up to 1024 threads), so G=1, C=3 spreads over 48
+  SMs at about one draw a thread.
+* Beliefs in registers, in vote-list form: the draw's L <= 32 responses are
+  loaded into registers (as int4s where L is 8, 12, 16 or 32), the mask is a
+  32-bit arm bitmask, and for each first voter of a class the class's
+  belief is the sum of the voters' log weights in ascending arm order from
+  0.0 — the plain version's add order. No per-class array: O(n L) register
+  work per draw for n masked arms whatever K is (the mask is the same for
+  the whole block, so an unmasked arm costs a uniform branch), and K=128
+  needs no local memory.
+* Integer tie histograms: a draw falls in bin ``ties - 1`` where class 0
+  attains the max; warps count bins by ballot into per-warp histograms,
+  each block sums its warps and writes the sum into rank 0's shared memory
+  (distributed shared memory), and after one cluster barrier rank 0 sums
+  the ranks' histograms in 64-bit integers and runs the plain version's
+  f64 combine (the lcm-scaled sum when lcm(1..K) < 2^24, else the chain
+  ``hist_0 + hist_1 / 2 + ...``), one rounding to f32. No atomics, no
+  scratch tensor, no second launch.
 """
 from __future__ import annotations
 
@@ -55,7 +62,11 @@ import torch
 from . import _build
 
 MAX_CLASSES = 128
-DRAWS_PER_BLOCK = 256          # kDraws in csrc/mc_correctness.cu
+MAX_ARMS = 32          # kMaxArms in csrc/mc_tie_hist.cuh: a 32-bit arm bitmask
+# the entry points' cluster argument: 0 lets the launch pick 16 blocks where
+# all G * C clusters of 16 fit on the card at once, else 8 (the study
+# `python -m repro_torch.kernels.mc_study` also times 8 and 16 forced)
+AUTO_CLUSTER = 0
 
 
 def _check(name, t, dtype, shape, dev) -> None:
@@ -64,6 +75,21 @@ def _check(name, t, dtype, shape, dev) -> None:
             f"{name}: need contiguous {dtype} {shape} on {dev}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device}"
         )
+
+
+def _check_sizes(kernel: str, K: int, L: int) -> None:
+    if not 1 <= K <= MAX_CLASSES:
+        raise ValueError(f"{kernel} takes 1 <= K <= {MAX_CLASSES}, got {K}")
+    if L > MAX_ARMS:
+        raise ValueError(f"{kernel} takes L <= {MAX_ARMS} arms, got {L}")
+
+
+def _run(kernel: str, dev, *args) -> None:
+    fn = _build.entry(kernel)
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
 
 
 def launch(responses, masks, log_weights, empty, num_classes: int) -> torch.Tensor:
@@ -77,8 +103,7 @@ def launch(responses, masks, log_weights, empty, num_classes: int) -> torch.Tens
     C = masks.shape[0]
     dev = responses.device
     K = int(num_classes)
-    if not 1 <= K <= MAX_CLASSES:
-        raise ValueError(f"mc_correctness takes 1 <= K <= {MAX_CLASSES}, got {K}")
+    _check_sizes("mc_correctness", K, L)
     if T < 1 or C > 65535:
         raise ValueError(f"mc_correctness takes T >= 1 draws and C <= 65535 masks, got T={T} C={C}")
     for name, t, dtype, shape in (
@@ -88,17 +113,9 @@ def launch(responses, masks, log_weights, empty, num_classes: int) -> torch.Tens
         ("empty", empty, torch.float32, (1,)),
     ):
         _check(name, t, dtype, shape, dev)
-    n_blocks = -(-T // DRAWS_PER_BLOCK)
-    hist = torch.empty((n_blocks, C, K), dtype=torch.int32, device=dev)
     out = torch.empty((C,), dtype=torch.float32, device=dev)
-    fn = _build.entry("mc_correctness")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(responses.data_ptr(), masks.data_ptr(), log_weights.data_ptr(),
-                 empty.data_ptr(), hist.data_ptr(), out.data_ptr(), C, T, L, K,
-                 n_blocks, stream)
-    if err != 0:
-        raise RuntimeError(f"mc_correctness launch failed: CUDA error {err}")
+    _run("mc_correctness", dev, responses.data_ptr(), masks.data_ptr(), log_weights.data_ptr(),
+         empty.data_ptr(), out.data_ptr(), C, T, L, K, AUTO_CLUSTER)
     return out
 
 
@@ -114,8 +131,9 @@ def launch_grouped(responses, masks, log_weights, empty, valid, theta,
     C = masks.shape[1]
     dev = responses.device
     K = int(num_classes)
-    if not 1 <= K <= MAX_CLASSES:
-        raise ValueError(f"mc_correctness_grouped takes 1 <= K <= {MAX_CLASSES}, got {K}")
+    _check_sizes("mc_correctness_grouped", K, L)
+    if G > 65535 or C > 65535:
+        raise ValueError(f"mc_correctness_grouped takes G, C <= 65535, got G={G} C={C}")
     for name, t, dtype, shape in (
         ("responses", responses, torch.int32, (G, T, L)),
         ("masks", masks, torch.float32, (G, C, L)),
@@ -126,12 +144,7 @@ def launch_grouped(responses, masks, log_weights, empty, valid, theta,
     ):
         _check(name, t, dtype, shape, dev)
     out = torch.empty((G, C), dtype=torch.float32, device=dev)
-    fn = _build.entry("mc_correctness_grouped")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(responses.data_ptr(), masks.data_ptr(), log_weights.data_ptr(),
-                 empty.data_ptr(), valid.data_ptr(), theta.data_ptr(),
-                 out.data_ptr(), G, C, T, L, K, stream)
-    if err != 0:
-        raise RuntimeError(f"mc_correctness_grouped launch failed: CUDA error {err}")
+    _run("mc_correctness_grouped", dev, responses.data_ptr(), masks.data_ptr(),
+         log_weights.data_ptr(), empty.data_ptr(), valid.data_ptr(), theta.data_ptr(),
+         out.data_ptr(), G, C, T, L, K, AUTO_CLUSTER)
     return out

@@ -21,10 +21,20 @@ from repro_torch.kernels import ops, ref
 pytestmark = pytest.mark.cuda
 
 BELIEF = [(16, 4, 3), (37, 8, 5), (130, 12, 77), (832, 12, 4)]
-GROUPED = [(1, 512, 4, 2, 3), (5, 700, 8, 5, 4), (3, 300, 12, 7, 6), (8, 16384, 12, 77, 3)]
+# (G, theta, L, K, C), thetas ragged below theta: the CPU sweep, G=8 at
+# K=77 and at K=4, K=1, K=17 (the last lcm-scaled K), K=18 (the first
+# histogram-chain K), K=128, L=32 (the cap), T below one block and T not a
+# multiple of a cluster's span (8 or 16 blocks of 256 draws)
+GROUPED = [(1, 512, 4, 2, 3), (5, 700, 8, 5, 4), (3, 300, 12, 7, 6), (8, 16384, 12, 77, 3),
+           (8, 5000, 12, 4, 5), (2, 900, 6, 1, 3), (2, 3000, 8, 17, 4), (2, 3000, 8, 18, 4),
+           (1, 5000, 12, 128, 3), (2, 2000, 32, 4, 5), (1, 100, 12, 4, 3), (1, 6001, 12, 4, 3)]
 # (theta, L, C, K): the Fig. 11 shape, one candidate over fewer draws than a
-# block, a ragged last block at K=77, and K=17 (the last lcm-scaled K)
-SINGLE = [(8000, 8, 8, 4), (300, 12, 1, 4), (16843, 12, 12, 77), (1000, 8, 6, 17)]
+# block, a ragged last block at K=77, K=17 (the last lcm-scaled K), K=1,
+# K=18 (the first histogram-chain K), K=128, L=32 (the cap) and T not a
+# multiple of a cluster's span
+SINGLE = [(8000, 8, 8, 4), (300, 12, 1, 4), (16843, 12, 12, 77), (1000, 8, 6, 17),
+          (700, 8, 3, 1), (1000, 8, 6, 18), (3000, 12, 5, 128), (2500, 32, 7, 4),
+          (4099, 12, 4, 4)]
 
 
 @pytest.fixture
@@ -56,22 +66,31 @@ def test_mc_correctness_grouped_matches_plain(cuda, G, theta, L, K, C):
     rng = np.random.default_rng(theta + G)
     est = GroupedXiEstimator(prng.key(1, cuda), rng.uniform(0.4, 0.95, (G, L)), K,
                              rng.integers(max(2, theta // 2), theta + 1, G), device=cuda)
-    masks = torch.as_tensor((rng.random((G, C, L)) < 0.6).astype(np.float32), device=cuda)
-    args = (est.responses, masks, est.log_weights, est.empty, est.valid,
-            est.theta_f.to(torch.float32))
+    masks = (rng.random((G, C, L)) < 0.6).astype(np.float32)
+    masks[:, -1] = 0.0                                   # the empty set too
+    masks = torch.as_tensor(masks, device=cuda)
+    # the draw axis cut to theta (the estimator pads it to a multiple of 256
+    # draws), so T need not fill a block; thetas below it stay ragged
+    resp, valid = (t[:, :theta].contiguous() for t in (est.responses, est.valid))
+    args = (resp, masks, est.log_weights, est.empty, valid, est.theta_f32)
     before = ops.mc_correctness_grouped.launches
     got = ops.mc_correctness_grouped(*args, K)
     want = ref.mc_correctness_grouped_ref(*args, K)
     torch.cuda.synchronize()
     assert ops.mc_correctness_grouped.launches == before + 1
-    torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    assert got.shape == (G, C) and got.dtype == torch.float32
+    # integer tie histograms and the plain version's f64 combine: bitwise
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("theta,L,C,K", SINGLE)
 def test_mc_correctness_matches_plain(cuda, theta, L, C, K):
     rng = np.random.default_rng(theta + C)
     est = McXiEstimator(prng.key(4, cuda), rng.uniform(0.4, 0.95, L), K, theta, device=cuda)
-    masks = torch.as_tensor((rng.random((C, L)) < 0.6).astype(np.float32), device=cuda)
+    masks = (rng.random((C, L)) < 0.6).astype(np.float32)
+    if C > 1:
+        masks[-1] = 0.0                                  # the empty set too
+    masks = torch.as_tensor(masks, device=cuda)
     args = (est._responses, masks, est._w, est._empty, K)
     before = ops.mc_correctness.launches
     got = ops.mc_correctness(*args)
