@@ -15,17 +15,20 @@ Phases:
    tensor-core instructions (``HGMMA``/``HMMA``) in the ``flash_attention``
    library's SASS (``cuobjdump -sass``): the phase fails at 0;
 3. kernels vs plain — each router kernel against its plain PyTorch version
-   on the same CUDA tensors: ``belief_aggregate`` at (130, 12, 77) and at
-   the router's prefix-expanded shape for K=4 and K=77 (beliefs to 1e-6,
-   predictions exact); ``mc_correctness_grouped`` at planner shapes
-   (G in {1, 8}, C=3, T=16384, L=12, K in {4, 77}; G=1 at K=128; G=8 at
-   L=32, the cap) and ``mc_correctness`` on ``sample_pool_responses``
-   draws at the Fig. 11 shape (T=8000, L=8, C=8, K=4), the serve defaults
-   (T = ``theta_for(0.1, 0.01, 0.95, 12)``, L=12, C=12) at K=4, 77 and
-   128, one candidate over T=300 (less than a block), a ragged last block
-   and L=32: both bitwise their plain versions, or the phase fails. Then
-   one call of each at its path shape under ``torch.profiler`` must show
-   exactly one kernel launch and allocate nothing but its output;
+   on the same CUDA tensors, bitwise, or the phase fails:
+   ``belief_aggregate`` (beliefs and predictions) at (130, 12, 77), at the
+   router's prefix-expanded shape for K=4 and K=77 and at M=40 for K=129,
+   200 and 1000; ``mc_correctness_grouped`` at planner shapes (G in {1, 8},
+   C=3, T=16384, L=12, K in {4, 77}; G=1 at K=128; G=8 at L=32, the last
+   register kernel, at K=200, and at L=33 and 64, the wide kernel; G=1 at
+   L=40, K=200) and ``mc_correctness`` on ``sample_pool_responses`` draws
+   at the Fig. 11 shape (T=8000, L=8, C=8, K=4), the serve defaults (T =
+   ``theta_for(0.1, 0.01, 0.95, 12)`` = 8471, L=12, C=12) at K=4, 77 and
+   128, one candidate over T=300 (less than a block), a ragged last block,
+   L=32, and the wide kernel at L=33, 64 and 128 (C=8, K=4) and at L=40,
+   K=1000. Then one call of each of the three at its path shape under
+   ``torch.profiler`` must show exactly one kernel launch and allocate
+   nothing but its outputs;
 4. route — the serve defaults (12 arms, K=4, 6 clusters, history 2000,
    batches of 64, eps 0.1, delta 0.01): uniform-budget batches (batched
    planner + device wave loop) and mixed-budget batches (serial planner,
@@ -79,26 +82,42 @@ Phases:
     above 0 after it; one selection is timed on the host clock (median of
     5) and the kernel at the shape the phase gave it. An ``[earlier
     kernels]`` line then sets each redesigned kernel's time (``flash_attention``,
-    ``mamba_scan``, ``mc_correctness``, ``mc_correctness_grouped``) beside
+    ``mamba_scan``, ``mc_correctness``, ``mc_correctness_grouped``,
+    ``belief_aggregate``) beside
     its earlier version's recorded time (not measured in this run, and so
     kept out of the ``kernels`` line);
 12. budget sweep — ``repro_torch.budget_sweep`` at the example's defaults
     (600 queries, 3000 history, 5 budgets): ThriftLLM, SurGreedy, cascade,
     top-k, single and blender with the router on the card and on the CPU;
     every column's (accuracy, mean cost) must be equal, and every
-    budget-aware column within its budget.
+    budget-aware column within its budget;
+13. 40 arms — the serve defaults over a 40-arm oracle pool (K=4), past
+    the register kernels' 32 arms: a uniform-budget and a mixed-budget
+    batch of 64 with ``use_kernel=True``, card vs CPU bitwise as in phase
+    4, then GreedyLLM with ``McXiEstimator(use_kernel=True)`` over the same
+    40 arms at budgets 1e-5 and 1e-4, picks and xi card vs CPU. The launch
+    counters, zeroed just before the phase, must show ``belief_aggregate``,
+    ``mc_correctness_grouped`` and ``mc_correctness`` above 0 after it.
 
 Two lines before the last is a JSON object listing every kernel with its
 launches, error, bound and times — ``ms``/``plain_ms``/``library_ms`` are
-device time per call from a ``torch.profiler`` trace, ``call_ms`` the
+device time per call from a ``torch.profiler`` trace of n calls between
+spin kernels that holds n times one call's kernel rows (else it is taken
+again, and a ``[profiler traces]`` line lists the short ones; a
+single-launch kernel whose traces all lost rows is read from its mean
+kernel row, ``ms_source`` says so; a ``[profiler rows]`` line counts the
+rows of bare and of bracketed traces), ``call_ms`` the
 CUDA-event wall time per call, host dispatch included; a router kernel's
 ``launches`` count phases 4-5 and its ``lm_route_launches`` phase 9, a
-model kernel's ``launches`` phase 9, ``mc_correctness``'s phase 11;
+model kernel's ``launches`` phase 9, ``mc_correctness``'s phase 11; the
+three router kernels' ``wide_pool_launches`` count phase 13.
 ``flash_attention`` is listed at the
 recurrentgemma shape with both path shapes under ``by_shape``. Every row
 carries ``launch_floor_ms``, the device time of a one-element ``zero_()``
-in this run: the least a single launch costs. The two ``mc_correctness``
-rows carry ``bitwise``: their every check in this run was exact. The line
+in this run: the least a single launch costs. The three router kernels'
+rows carry ``bitwise`` (their every check in this run was exact) and
+``call_ms``; the two ``mc_correctness`` rows carry ``wide``, the wide
+kernel at L=64 (K=4) at the row's path shape otherwise. The line
 before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero; without a CUDA device, or without the repository's
@@ -120,7 +139,6 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12            # H100 SXM f32 rate outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
-BELIEF_ATOL = 1e-6
 FLASH_BF16_ATOL = 2e-2           # one bf16 rounding of the output (tests/test_kernels.py)
 FLASH_F32_ATOL = 2e-5
 RGLRU_ATOL = 1e-5
@@ -166,24 +184,86 @@ def device_events(prof):
             if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
 
 
-def device_ms(fn, n: int = 20, tries: int = 3):
-    """Device time per call of ``fn``: the summed device time of every kernel
-    it launches, from a ``torch.profiler`` trace of ``n`` calls. A trace
-    that holds no device time (it happens now and then) is taken again, up
-    to ``tries`` traces. Returns ``(ms, "profiler")``, or the CUDA-event
-    wall time per call with ``"events"`` if no trace held device time."""
+# every device_ms trace of n calls: how many, and those whose kernel rows
+# were not n times one call's (taken again)
+TRACES = {"taken": 0, "short": []}
+# A trace brackets the calls it times with spin kernels (`torch.cuda._sleep`)
+# after a pause, since a trace of bare calls loses some of their kernel rows
+# (the `[profiler rows]` line counts them both ways); the spin kernels' rows
+# are left out of the count.
+SENTINELS = 4
+SPIN_CYCLES = 2000
+PAUSE_S = 0.05
+
+
+def kernel_rows(prof):
+    """(kernel rows, device us) of a ``torch.profiler`` trace, spin kernels
+    left out."""
+    rows = [e for e in device_events(prof) if "spin_kernel" not in e.key]
+    return sum(e.count for e in rows), sum(e.self_device_time_total for e in rows)
+
+
+def traced(fn, calls: int, sentinels: int = SENTINELS, pause_s: float = PAUSE_S):
+    """A ``torch.profiler`` trace (the CUDA activity) of ``calls`` calls of
+    ``fn`` between ``sentinels`` spin kernels before and after, begun
+    ``pause_s`` after the card is idle and ended by a synchronize."""
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    time.sleep(pause_s)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(sentinels):
+            torch.cuda._sleep(SPIN_CYCLES)
+        for _ in range(calls):
+            fn()
+        for _ in range(sentinels):
+            torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+    return prof
+
+
+def trace_rows(fn, n: int = 20, traces: int = 5) -> dict:
+    """Kernel rows of ``traces`` traces each of 1 and of ``n`` calls of
+    ``fn`` (one kernel a call), and the mean kernel row's ms of the traces
+    of ``n``: bare, between spin kernels, and between spin kernels after a
+    pause. A trace that holds fewer rows than calls lost launches."""
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for way, how in {"bare": (0, 0.0), "spin kernels": (SENTINELS, 0.0),
+                     "spin kernels after a pause": (SENTINELS, PAUSE_S)}.items():
+        one = [kernel_rows(traced(fn, 1, *how))[0] for _ in range(traces)]
+        many = [kernel_rows(traced(fn, n, *how)) for _ in range(traces)]
+        out[way] = {"1": one, str(n): [r for r, _ in many],
+                    "row_ms": [us / r / 1e3 if r else None for r, us in many]}
+    return out
+
+
+def device_ms(fn, n: int = 20, tries: int = 3, launches: int = 0):
+    """Device time per call of ``fn``: the summed device time of every kernel
+    it launches, from a :func:`traced` trace of ``n`` calls. The trace must
+    hold ``n`` times the kernel rows of one call (``launches`` where known,
+    else counted in a traced single call): one that does not (or holds no
+    device time) is taken again, up to ``tries`` times. Returns ``(ms,
+    "profiler")``; where no trace was whole, ``launches`` times the mean
+    kernel row of the last trace with ``"profiler, rows lost"`` if
+    ``launches`` is known, else the CUDA-event wall time per call with
+    ``"events"``."""
+    def trace(calls: int):
+        return kernel_rows(traced(fn, calls))
 
     fn()
     torch.cuda.synchronize()
+    rows = us = 0
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in device_events(prof))
-        if us > 0:
+        per_call = launches or trace(1)[0]
+        rows, us = trace(n)
+        TRACES["taken"] += 1
+        if per_call > 0 and rows == n * per_call and us > 0:
             return us / n / 1e3, "profiler"
+        TRACES["short"].append({"rows": rows, "want": n * per_call, "us": us})
+    if launches and rows > 0:
+        return us / rows * launches / 1e3, "profiler, rows lost"
     return median_ms(fn), "events"
 
 
@@ -195,7 +275,7 @@ def profiled_split(fn) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -279,16 +359,17 @@ def bound_ms(nbytes, ops, ops_per_s=F32_OPS_PER_S):
 
 def kernel_error(name: str, got, want, label: str) -> float:
     """Max abs error of a kernel's output against its plain version's on the
-    same inputs; raises, printing the rows concerned, past the tolerance
-    (or on any differing prediction). The two ``mc_correctness`` kernels
-    must equal their plain versions bit for bit."""
+    same inputs; raises, printing the rows concerned, unless they are equal
+    bit for bit: ``belief_aggregate`` (beliefs and predictions) and the two
+    ``mc_correctness`` kernels add in their plain versions' order."""
     torch.cuda.synchronize()
     if name == "belief_aggregate":
         (bel, pred), (bel_p, pred_p) = got, want
         err = float((bel - bel_p).abs().max())
         bad = torch.nonzero(pred != pred_p)[:, 0].tolist()
-        log(f"  {name} {label}: max_abs_err={err:.3g} pred_mismatch={len(bad)}")
-        if not err <= BELIEF_ATOL or bad:
+        same = bool(torch.equal(bel, bel_p)) and not bad
+        log(f"  {name} {label}: max_abs_err={err:.3g} pred_mismatch={len(bad)} bitwise={same}")
+        if not same:
             raise AssertionError(
                 f"{name} disagrees with its plain version at {label}: err {err}, "
                 f"rows {bad[:10]} kernel {pred[bad[:10]].tolist()} plain {pred_p[bad[:10]].tolist()}"
@@ -313,7 +394,9 @@ def single_cases():
     return ((8000, 8, 8, 4, "Fig. 11"), (t_serve, 12, 12, 4, "serve defaults"),
             (t_serve, 12, 12, 77, "serve defaults"), (t_serve, 12, 12, 128, "serve defaults"),
             (300, 12, 1, 4, "one candidate, T < a block"), (1000, 8, 6, 17, "ragged last block"),
-            (2500, 32, 7, 4, "L=32, the cap"))
+            (2500, 32, 7, 4, "L=32, the last register kernel"),
+            (t_serve, 33, 8, 4, "wide kernel"), (t_serve, 64, 8, 4, "wide kernel"),
+            (t_serve, 128, 8, 4, "wide kernel"), (t_serve, 40, 8, 1000, "wide kernel, by first voter"))
 
 
 def single_inputs(T: int, L: int, C: int, K: int, seed: int, dev):
@@ -339,17 +422,29 @@ def single_bound(args, K):
     return nbytes, ops
 
 
+# (query rows B, M, K, prefix layout): belief_aggregate's phase-3 cases — the
+# router's prefix-expanded layout at K=4 and 77 (64 (M + 1) rows), and M=40
+# arms past 128 classes
+BELIEF_CASES = ((130, 12, 77, False), (64, 12, 4, True), (64, 12, 77, True),
+                (130, 40, 129, False), (130, 40, 200, False), (130, 40, 1000, False))
+# (G, L, K) of the phase-3 mc_correctness_grouped checks at C=3, T=16384:
+# the planner's shape, K=77 and 128, G=8, L=32 (the last register kernel),
+# K=200 (folded bins), and the wide kernel at L=33 and 64
+GROUPED_CASES = ((1, 12, 4), (1, 12, 77), (1, 12, 128), (8, 12, 4), (8, 12, 77), (8, 32, 4),
+                 (8, 12, 200), (8, 33, 4), (8, 64, 4), (1, 40, 200))
+
+
 def check_kernels(dev) -> dict:
     from repro_torch.kernels import ops, ref
 
     errs = {"belief_aggregate": 0.0, "mc_correctness_grouped": 0.0, "mc_correctness": 0.0}
-    for rows_b, T, K, prefix in ((130, 12, 77, False), (64, 12, 4, True), (64, 12, 77, True)):
+    for rows_b, T, K, prefix in BELIEF_CASES:
         args = belief_inputs(rows_b, T, K, prefix, seed=rows_b + K, dev=dev)
         err = kernel_error("belief_aggregate", ops.belief_aggregate(*args, K),
                            ref.belief_aggregate_ref(*args, K),
                            f"rows={args[0].shape[0]} M={T} K={K}")
         errs["belief_aggregate"] = max(errs["belief_aggregate"], err)
-    for G, L, K in ((1, 12, 4), (1, 12, 77), (1, 12, 128), (8, 12, 4), (8, 12, 77), (8, 32, 4)):
+    for G, L, K in GROUPED_CASES:
         args = mc_inputs(G, 16384, L, K, 3, seed=G * 100 + K + L, dev=dev)
         err = kernel_error("mc_correctness_grouped", ops.mc_correctness_grouped(*args, K),
                            ref.mc_correctness_grouped_ref(*args, K),
@@ -362,31 +457,36 @@ def check_kernels(dev) -> dict:
         errs["mc_correctness"] = max(errs["mc_correctness"], err)
     single = single_inputs(8471, 12, 12, 4, seed=3, dev=dev)
     grouped = mc_inputs(1, 16384, 12, 4, 3, seed=4, dev=dev)
-    one_launch("mc_correctness", lambda: ops.mc_correctness(*single, 4), 12 * 4)
-    one_launch("mc_correctness_grouped", lambda: ops.mc_correctness_grouped(*grouped, 4), 3 * 4)
+    belief = belief_inputs(64, 10, 4, True, seed=5, dev=dev)
+    one_launch("mc_correctness", lambda: ops.mc_correctness(*single, 4))
+    one_launch("mc_correctness_grouped", lambda: ops.mc_correctness_grouped(*grouped, 4))
+    one_launch("belief_aggregate", lambda: ops.belief_aggregate(*belief, 4))
     return errs
 
 
-def one_launch(name: str, fn, out_bytes: int) -> None:
+def one_launch(name: str, fn) -> None:
     """One call of ``fn`` (inputs on the card, kernel built) under
     ``torch.profiler``: raises unless the trace shows exactly one kernel
-    launch and the call allocates nothing beyond its output (one block of
-    the caching allocator, 512 bytes)."""
+    launch and the call allocates nothing beyond its outputs (each one
+    block of the caching allocator, a multiple of 512 bytes)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
     grown = torch.cuda.max_memory_allocated() - base
+    outs = out if isinstance(out, tuple) else (out,)
+    out_bytes = [t.numel() * t.element_size() for t in outs]
+    allowed = sum(-(-b // 512) * 512 for b in out_bytes)
     rows = [(e.key, e.count) for e in device_events(prof)]
     log(f"  {name}: one call = kernel rows {rows}, {grown} bytes allocated "
-        f"(output {out.numel() * out.element_size()} bytes)")
-    if len(rows) != 1 or rows[0][1] != 1 or grown > -(-out_bytes // 512) * 512:
-        raise AssertionError(f"{name}: one call must be one launch and one output allocation, "
+        f"(outputs {out_bytes} bytes)")
+    if len(rows) != 1 or rows[0][1] != 1 or grown > allowed:
+        raise AssertionError(f"{name}: one call must be one launch and its output allocations, "
                              f"got kernel rows {rows} and {grown} bytes")
 
 
@@ -395,17 +495,18 @@ def one_launch(name: str, fn, out_bytes: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def serve_state(K: int, seed: int = 0):
+def serve_state(K: int, seed: int = 0, num_arms: int = 12):
     """The serve defaults: a 12-arm oracle pool over 6 clusters, calibrated
-    from 2000 historical responses."""
+    from 2000 historical responses (``num_arms`` arms where given)."""
     from repro_torch import convert
     from repro_torch.core.clustering import kmeans
     from repro_torch.data.synth import OracleWorkload
 
-    wl = OracleWorkload(num_classes=K, num_clusters=6, num_arms=12, seed=seed)
+    wl = OracleWorkload(num_classes=K, num_clusters=6, num_arms=num_arms, seed=seed)
     table, emb, _ = wl.response_table(2000, seed=1)
     assign, _ = kmeans(emb, 6, seed=0)
-    arms = [{"name": f"llm-{i}", "arm_index": i, "seed": 9, "metered": False} for i in range(12)]
+    arms = [{"name": f"llm-{i}", "arm_index": i, "seed": 9, "metered": False}
+            for i in range(num_arms)]
     return wl, convert.workload_state(wl), {"table": table, "emb": emb, "assign": assign}, arms
 
 
@@ -856,14 +957,16 @@ def sdpa_ms(q, k, v):
 # The earlier kernels' device ms at the same shapes, as PERF.md section 6
 # records them (NVIDIA H100 80GB HBM3, 700.00 W): flash v2 (f32 products on
 # the CUDA cores) per path shape, mamba_scan v1 (accurate expf, f32 in and
-# out, the casts outside the kernel), and the two mc_correctness kernels
+# out, the casts outside the kernel), the two mc_correctness kernels
 # before their redesign (two launches, tie counts and combine; one block
-# per (group, candidate)).
+# per (group, candidate)), and belief_aggregate's first design (one warp a
+# row, a loop of broadcast loads).
 EARLIER_MS = {"flash_attention smollm path": 0.20470094999999994,
               "flash_attention recurrentgemma path": 1.4304699499999998,
               "mamba_scan": 0.7823275999999999,
               "mc_correctness": 0.007682000000000028,
-              "mc_correctness_grouped": 0.06899614999999994}
+              "mc_correctness_grouped": 0.06899614999999994,
+              "belief_aggregate": 0.0021225999999999997}
 EARLIER_FROM = "recorded in PERF.md section 6 (not measured in this run)"
 
 
@@ -877,10 +980,25 @@ def earlier_kernels(rows: list) -> dict:
             for k, v in EARLIER_MS.items()}
 
 
+def wide_row(fn, args, bound_of, shape: str) -> dict:
+    """An ``mc_correctness`` kernel on the wide kernel's path (L=64 arms):
+    bitwise its plain version, device ms and ``call_ms``, beside its
+    bound."""
+    from repro_torch.kernels import ref
+
+    K = 4
+    plain = getattr(ref, f"{fn.__name__}_ref")
+    kernel_error(fn.__name__, fn(*args, K), plain(*args, K), f"{shape} (wide kernel)")
+    b_ms, b_by = bound_ms(*bound_of(args, K))
+    ms, ms_source = device_ms(lambda: fn(*args, K), launches=1)
+    return {"shape": shape, "ms": ms, "ms_source": ms_source,
+            "call_ms": median_ms(lambda: fn(*args, K)), "bound_ms": b_ms, "bound_by": b_by}
+
+
 def launch_floor_ms(dev) -> float:
     """Device ms of a one-element ``zero_()``: the least a launch costs."""
     one = torch.zeros(1, device=dev)
-    return device_ms(lambda: one.zero_(), n=50)[0]
+    return device_ms(lambda: one.zero_(), n=50, launches=1)[0]
 
 
 def max_sm_clock_hz() -> float:
@@ -949,6 +1067,8 @@ def time_model_kernels(launches: dict, errs: dict) -> list:
         "bound_by": b_by, "library_ms": None, "shape": "B=64 S=127 D=4096",
         "call_ms": median_ms(lambda: ops.rglru_scan(*args)),
     })
+    log(f"[profiler rows] rglru_scan, kernel rows of traces of 1 and 20 calls: "
+        f"{json.dumps(trace_rows(lambda: ops.rglru_scan(*args)))}")
     B, S, Din, N, R = MAMBA_PATH
     args = mamba_path_inputs(B, S, Din, N, R, seed=42, dev=dev)
     b_ms, b_by, b_detail = mamba_bound(args)
@@ -1111,6 +1231,63 @@ def sweep_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: a 40-arm pool, past the register kernels' 32 arms
+# ---------------------------------------------------------------------------
+
+WIDE_ARMS = 40
+WIDE_BUDGETS = (1e-5, 1e-4)
+
+
+def wide_pool_phase(dev) -> None:
+    """The serve defaults over a 40-arm oracle pool at K=4 with
+    ``use_kernel=True``: a uniform-budget and a mixed-budget batch of 64
+    (the mixed one plans serially, scoring candidates with
+    ``mc_correctness_grouped`` over 40 arms), each on the card and on the
+    CPU, plans, predictions, schedules, costs and beliefs bitwise; then
+    GreedyLLM with ``McXiEstimator(use_kernel=True)`` over the same 40
+    arms (the cluster with the most draws, at two budgets), picks and xi
+    card vs CPU."""
+    from repro_torch import convert
+    from repro_torch.core import (
+        McXiEstimator, SuccessProbEstimator, clip_probs, greedy, prng, theta_for,
+    )
+
+    K = 4
+    wl, state, history, arms = serve_state(K, num_arms=WIDE_ARMS)
+    work = batches(wl, 2, seed=44)
+    results, routers = {}, {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        routers[label] = convert.router_from_state(
+            state, history, arms, K, eps=0.1, delta=0.01, use_kernel=True, device=where,
+        )
+        results[label] = route_all(routers[label], work)
+        torch.cuda.synchronize()
+        log(f"  {WIDE_ARMS} arms {label}: 3 routes of 64 in {time.perf_counter() - t0:.2f} s")
+    compare_plans(routers["card"], routers["cpu"])
+    compare_routes(results["card"], results["cpu"])
+    card = results["card"]
+    log(f"  {WIDE_ARMS} arms: card == cpu (bitwise), {len(routers['card'].selector._cache)} plans, "
+        f"waves {[r.schedule.shape[1] for r in card]}, arms served "
+        f"{int((card[1].arm_query_counts > 0).sum())}, accuracy "
+        f"{np.mean([np.mean(r.predictions == w[0][:, 1]) for r, w in zip(card, work + work[-1:])]):.3f}")
+    est = SuccessProbEstimator(history["table"], history["emb"], history["assign"])
+    costs = np.asarray(wl.costs, np.float64)
+    theta_of = lambda q: theta_for(0.1, 0.01, float(np.max(clip_probs(q))), WIDE_ARMS)
+    p = max((cs.p_hat for cs in est.clusters.values()), key=theta_of)
+    picks = {}
+    for budget in WIDE_BUDGETS:
+        got, want = (greedy(p, costs, budget,
+                            McXiEstimator(prng.key(0, where), p, K, theta_of(p), use_kernel=True,
+                                          device=where), empty_value=1 / K)
+                     for where in (dev, torch.device("cpu")))
+        check_greedy(got, want, f"{WIDE_ARMS} arms, budget {budget}")
+        picks[budget] = (len(got[0]), got[1])
+    log(f"  GreedyLLM over {WIDE_ARMS} arms (theta {theta_of(p)}): card == cpu, "
+        f"(arms picked, xi) by budget {picks}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1196,7 +1373,7 @@ def main() -> int:
     ):
         err = kernel_error(name, fn(*args, 4), plain(*args, 4), f"{shape} (main path)")
         errs[name] = max(errs[name], err)
-        ms, ms_source = device_ms(lambda: fn(*args, 4))
+        ms, ms_source = device_ms(lambda: fn(*args, 4), launches=1)
         plain_ms, plain_source = device_ms(lambda: plain(*args, 4), n=5)
         b_ms, b_by = bound_ms(*nb_ops)
         kernels.append({
@@ -1208,8 +1385,13 @@ def main() -> int:
             "call_ms": median_ms(lambda: fn(*args, 4)),
             "plain_call_ms": median_ms(lambda: plain(*args, 4), reps=5, inner=5),
         })
+        kernels[-1]["bitwise"] = errs[name] == 0.0
         if name == "mc_correctness_grouped":
-            kernels[-1]["bitwise"] = errs[name] == 0.0
+            kernels[-1]["wide"] = wide_row(fn, mc_inputs(1, Tp, 64, 4, 3, seed=6, dev=dev),
+                                           mc_bound, f"G=1 C=3 T={Tp} L=64 K=4")
+    rows = trace_rows(lambda: ops.belief_aggregate(*ba_args, 4))
+    log(f"[profiler rows] belief_aggregate, kernel rows of traces of 1 and 20 calls: "
+        f"{json.dumps(rows)}")
 
     t0 = time.perf_counter()
     log("[7 model kernels vs plain, on the card]")
@@ -1249,7 +1431,7 @@ def main() -> int:
     err = kernel_error("mc_correctness", ops.mc_correctness(*args, 4),
                        ref.mc_correctness_ref(*args, 4), f"{shape} (phase 11)")
     errs["mc_correctness"] = max(errs["mc_correctness"], err)
-    ms, ms_source = device_ms(lambda: ops.mc_correctness(*args, 4))
+    ms, ms_source = device_ms(lambda: ops.mc_correctness(*args, 4), launches=1)
     plain_ms, plain_source = device_ms(lambda: ref.mc_correctness_ref(*args, 4), n=5)
     b_ms, b_by = bound_ms(*single_bound(args, 4))
     kernels.append({
@@ -1263,6 +1445,8 @@ def main() -> int:
         "plain_ms_source": plain_source,
         "call_ms": median_ms(lambda: ops.mc_correctness(*args, 4)),
         "plain_call_ms": median_ms(lambda: ref.mc_correctness_ref(*args, 4), reps=5, inner=5),
+        "wide": wide_row(ops.mc_correctness, single_inputs(T1, 64, 12, 4, seed=7, dev=dev),
+                         single_bound, f"T={T1} L=64 C=12 K=4"),
     })
 
     ops.reset_launch_counts()
@@ -1273,11 +1457,27 @@ def main() -> int:
     log(f"  kernel launches in phase 12: mc_correctness {ops.mc_correctness.launches}, "
         f"belief_aggregate {ops.belief_aggregate.launches}, "
         f"mc_correctness_grouped {ops.mc_correctness_grouped.launches}")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    log(f"[13 a {WIDE_ARMS}-arm pool: routes and GreedyLLM, card vs cpu]")
+    wide_pool_phase(dev)
+    wide_launches = {name: getattr(ops, name).launches
+                     for name in ("belief_aggregate", "mc_correctness_grouped", "mc_correctness")}
+    phases["wide_pool_s"] = time.perf_counter() - t0
+    log(f"  launches in phase 13: {wide_launches}")
+    for name, n in wide_launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was never launched on the {WIDE_ARMS}-arm path")
+    for row in kernels:
+        if row["name"] in wide_launches:
+            row["wide_pool_launches"] = wide_launches[row["name"]]
     log(f"[earlier kernels] {json.dumps(earlier_kernels(kernels))}")
     floor = launch_floor_ms(dev)
     for row in kernels:
         row["launch_floor_ms"] = floor
     log(f"[phases] {json.dumps({k: round(v, 3) for k, v in phases.items()})}")
+    log(f"[profiler traces] {json.dumps(TRACES)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

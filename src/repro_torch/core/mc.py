@@ -197,7 +197,7 @@ def _xi_from_ties(hit0: torch.Tensor, ties: torch.Tensor, theta: torch.Tensor,
                   num_classes: int):
     """Exact fractional-credit mean from per-draw (hit0, ties) configs.
 
-    K <= 17 (lcm(1..K) < 2^24): each draw's credit ``1/ties`` is scaled by
+    K <= 18 (lcm(1..K) < 2^24): each draw's credit ``1/ties`` is scaled by
     the lcm into an exact integer, summed exactly in f64 and divided once.
     Beyond that the tie-count histogram keeps exactness.
     """

@@ -5,8 +5,9 @@ launches its kernel on a given stream and returns ``cudaGetLastError()``.
 :func:`build` compiles every source with ``nvcc`` into its own shared
 library under ``build/repro_torch_kernels/`` at the repository root — one
 ``nvcc`` per source, all started together — named by a hash of the source,
-every header in ``csrc/`` and the flags, so an edited source or header
-rebuilds and an unchanged one is reused.
+every header in ``csrc/``, the flags and the compiler's ``nvcc --version``,
+so an edited source or header, or another CUDA toolkit, rebuilds and an
+unchanged one is reused.
 Nothing is built when a module is imported: only the first launch on a
 CUDA tensor (or an explicit :func:`build`) calls the compiler.
 """
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from functools import lru_cache
 from pathlib import Path
 from typing import Dict
 
@@ -70,14 +72,28 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+@lru_cache(maxsize=None)
+def nvcc_version() -> str:
+    """What ``nvcc --version`` prints, read once per process; a fixed text
+    where there is no compiler (then :func:`build` raises, and only the
+    name of an existing library can be asked for)."""
+    try:
+        nvcc = nvcc_path()
+    except RuntimeError:
+        return "no nvcc"
+    return subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def library_path(name: str) -> Path:
     """Where kernel ``name``'s library lives: named by a hash of its source,
-    of every ``csrc/*.cuh`` (name and bytes: a source may include any) and
-    of the flags."""
+    of every ``csrc/*.cuh`` (name and bytes: a source may include any), of
+    the flags and of the compiler's version."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc_version().encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -20,19 +20,25 @@ The TPU kernel contracted a (rows, M, K) one-hot cube on the MXU; here the
 vote sum is a compare-and-add loop, with no tensor cores (a one-hot
 product is not worth them).
 
-Design: one warp per row, lanes over the classes (K padded to a multiple
-of 32, at most 128, kept in registers), the M responses read in ascending
-order so each class's f32 sum is a fixed chain of adds — bitwise the plain
-version — and a warp-shuffle first-max argmax. One launch covers every
-row, so the router pays one launch per batch.
+Design (redesigned for the H100): a group of G lanes per row, G the next
+power of two >= min(K, 32), so a warp serves 32 / G rows (8 at K=4: the
+router's 704 rows are 88 warps, one a block, each on an SM of its own,
+where one warp a row left 28 of 32 lanes idle). The group loads its row's
+responses and weights once, spread over its lanes, all loads of a lane
+issued together (one memory latency, where a loop of M broadcast loads
+paid one each); votes go round the group by shuffles in ascending arm order, each
+lane adding the weights of the votes for its classes (``lane + G j``), so
+each class's f32 sum is a fixed chain of adds — bitwise the plain version
+— and classes past G are further chunks over the responses already held.
+The first-max argmax is a segmented shuffle reduction (ties to the lower
+index); stores run over consecutive (row, k). Any K. One launch covers
+every row, so the router pays one launch per batch.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-
-MAX_CLASSES = 128
 
 
 def launch(responses: torch.Tensor, log_weights: torch.Tensor,
@@ -46,8 +52,8 @@ def launch(responses: torch.Tensor, log_weights: torch.Tensor,
     B, M = responses.shape
     dev = responses.device
     K = int(num_classes)
-    if not 1 <= K <= MAX_CLASSES:
-        raise ValueError(f"belief_aggregate takes 1 <= K <= {MAX_CLASSES}, got {K}")
+    if K < 1:
+        raise ValueError(f"belief_aggregate takes K >= 1 classes, got {K}")
     for name, t, dtype, shape in (
         ("responses", responses, torch.int32, (B, M)),
         ("log_weights", log_weights, torch.float32, (B, M)),

@@ -23,8 +23,8 @@ masked arms that answered each class and empty classes show the empty
 belief. The two are one function: the grouped plain version at G=1, with
 every draw valid and theta = T, is the single-pool one. The TPU kernels
 contracted one-hot cubes on the MXU and accumulated tiles across a
-sequential grid; here each draw's votes are compared in registers, with no
-padding.
+sequential grid; here each draw's votes are compared in registers (in
+shared memory past 32 arms), with no padding.
 
 What bounds them on an H100: bytes, and at the path's shapes a single
 launch. ``mc_correctness`` at GreedyLLM's serve-default shape (T=8471 draws,
@@ -38,22 +38,41 @@ Design (one launch each, bitwise their plain versions):
   of 16 are resident on the card at once, else 8; each block sized to its
   share of the draws (up to 1024 threads), so G=1, C=3 spreads over 48
   SMs at about one draw a thread.
-* Beliefs in registers, in vote-list form: the draw's L <= 32 responses are
-  loaded into registers (as int4s where L is 8, 12, 16 or 32), the mask is a
-  32-bit arm bitmask, and for each first voter of a class the class's
-  belief is the sum of the voters' log weights in ascending arm order from
-  0.0 — the plain version's add order. No per-class array: O(n L) register
-  work per draw for n masked arms whatever K is (the mask is the same for
-  the whole block, so an unmasked arm costs a uniform branch), and K=128
-  needs no local memory.
+* L <= 32 arms — beliefs in registers, in vote-list form: the draw's
+  responses are loaded into registers (as int4s where L is 8, 12, 16 or
+  32), the mask is a 32-bit arm bitmask, and for each first voter of a
+  class the class's belief is the sum of the voters' log weights in
+  ascending arm order from 0.0 — the plain version's add order. No
+  per-class array: O(n L) register work per draw for n masked arms
+  whatever K is (the mask is the same for the whole block, so an unmasked
+  arm costs a uniform branch).
+* L > 32 arms — the wide kernel, chosen by an explicit branch on L: the
+  mask is a multi-word bitmask in shared memory (one ballot per 32 arms)
+  and a list of the masked arms in ascending order; each warp stages its
+  32 draws' masked class ids in shared memory as int16 and each lane
+  works out one draw over the masked arms only, in the same add order:
+  class by class where K <= n (2 K n steps, the same for every lane), else
+  from each class's first voter on, marking the class's later voters as
+  it adds them (at most 2 n min(K, n) steps, each lane its own);
+  ``python -m repro_torch.kernels.mc_study --wide`` times both.
+  Blocks of up to 256 threads, fewer where the staging of L arms would
+  pass 128 KB.
 * Integer tie histograms: a draw falls in bin ``ties - 1`` where class 0
-  attains the max; warps count bins by ballot into per-warp histograms,
-  each block sums its warps and writes the sum into rank 0's shared memory
-  (distributed shared memory), and after one cluster barrier rank 0 sums
-  the ranks' histograms in 64-bit integers and runs the plain version's
-  f64 combine (the lcm-scaled sum when lcm(1..K) < 2^24, else the chain
-  ``hist_0 + hist_1 / 2 + ...``), one rounding to f32. No atomics, no
-  scratch tensor, no second launch.
+  attains the max. A bin lies below n or at least K - n - 1 (only the
+  empty belief's tie reaches past n), so K bins fold into min(K, 2H)
+  slots (H = 64 for L <= 32, L + 1 above): 128 slots at most for L <= 32,
+  whatever K is (a template of its own folds past K = 128). Warps count bins by ballot; each block's histogram goes
+  into rank 0's shared memory (distributed shared memory), and after one
+  cluster barrier rank 0 runs the plain version's f64 combine (the
+  lcm-scaled sum when lcm(1..K) < 2^24, K <= 18, else the chain
+  ``hist_0 + hist_1 / 2 + ...`` over the bins that hold a count; the
+  others add 0.0), one rounding to f32. No scratch tensor, no second
+  launch.
+
+Sizes: any L <= 1024 arms (the wide kernel's staging of L int16 class ids
+a lane fits one warp at most) and any K <= 32767 classes (int16 class
+ids). The wrappers refuse larger sizes, with the reason, before the
+kernels are built.
 """
 from __future__ import annotations
 
@@ -61,8 +80,10 @@ import torch
 
 from . import _build
 
-MAX_CLASSES = 128
-MAX_ARMS = 32          # kMaxArms in csrc/mc_tie_hist.cuh: a 32-bit arm bitmask
+# kMaxClasses / kMaxArms in csrc/mc_tie_hist.cuh: the wide kernel stages
+# class ids as int16, and the staging of L of them a lane fits one warp
+MAX_CLASSES = 32767
+MAX_ARMS = 1024
 # the entry points' cluster argument: 0 lets the launch pick 16 blocks where
 # all G * C clusters of 16 fit on the card at once, else 8 (the study
 # `python -m repro_torch.kernels.mc_study` also times 8 and 16 forced)
@@ -79,9 +100,11 @@ def _check(name, t, dtype, shape, dev) -> None:
 
 def _check_sizes(kernel: str, K: int, L: int) -> None:
     if not 1 <= K <= MAX_CLASSES:
-        raise ValueError(f"{kernel} takes 1 <= K <= {MAX_CLASSES}, got {K}")
+        raise ValueError(f"{kernel} takes 1 <= K <= {MAX_CLASSES} classes (class ids are "
+                         f"staged as int16), got {K}")
     if L > MAX_ARMS:
-        raise ValueError(f"{kernel} takes L <= {MAX_ARMS} arms, got {L}")
+        raise ValueError(f"{kernel} takes L <= {MAX_ARMS} arms (a lane's L staged class ids "
+                         f"must fit one warp's shared memory), got {L}")
 
 
 def _run(kernel: str, dev, *args) -> None:

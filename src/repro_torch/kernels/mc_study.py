@@ -1,10 +1,12 @@
 """The ``mc_correctness`` kernels' cluster size and resources, on one CUDA
 card, at the two path shapes:
 
-    PYTHONPATH=src python -m repro_torch.kernels.mc_study [--variants | --timeline]
+    PYTHONPATH=src python -m repro_torch.kernels.mc_study [--variants | --timeline |
+                                                           --wide | --against DIR]
 
-Prints what ``nvcc -Xptxas -v`` reports for both libraries (registers,
-spills, stack), then one JSON line: the device time of a one-element
+Prints what ``nvcc -Xptxas -v`` reports for both libraries and for
+``belief_aggregate``'s (registers, spills, stack; SASS instruction,
+branch and local-memory counts), then one JSON line: the device time of a one-element
 ``zero_()`` (the least a launch costs) and, for each kernel at its path
 shape and each cluster size (the launch's own choice, 8 blocks, the
 portable limit, and 16, the non-portable one), whether it equals its plain version bit for bit, its
@@ -22,6 +24,22 @@ block): ``%globaltimer`` at entry and exit, ``clock64`` at the phase
 boundaries (setup, draw loop, first cluster wait, push and barrier, rank
 0's combine); prints, per kernel and cluster size, the kernel's span and
 entry skew in ns and the median and largest cycles of each phase.
+
+``--wide``: the wide kernel (L > 32) of ``mc_correctness`` at L=64 K=4
+and at L=40 K=1000, built as it is (class by class where K <= n masked
+arms, else first voter by first voter) and with each of its two bin
+loops forced; per probe and shape, whether it equals the plain version
+and its device ms.
+
+``--against DIR``: ``belief_aggregate`` and both ``mc_correctness``
+libraries built from this tree's sources and from those of the checkout
+DIR (another commit, unpacked), each launched at its path shape at the
+launch's own cluster size, the two timed in turns; device ms per call of
+each side in each round, and whether the two sides' outputs are equal.
+
+Device time comes from ``torch.profiler`` kernel rows of traces that
+bracket the timed calls with spin kernels after a pause: a trace of bare
+calls loses kernel rows (see ``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -31,6 +49,7 @@ import json
 import re
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -48,7 +67,7 @@ def ptxas_report() -> dict:
     local-memory accesses (``cuobjdump -sass``)."""
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("mc_correctness", "mc_correctness_grouped"):
+        for name in ("mc_correctness", "mc_correctness_grouped", "belief_aggregate"):
             so = Path(tmp) / f"{name}.so"
             cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                    "-o", str(so), str(_build.CSRC / f"{name}.cu")]
@@ -73,24 +92,36 @@ def ptxas_report() -> dict:
 
 
 def device_ms(fn, n: int = 50, tries: int = 3) -> float:
-    """Device ms per call of ``fn``: its kernel rows in a ``torch.profiler``
-    trace of ``n`` calls. A trace that holds no device time (it happens now
-    and then) is taken again, up to ``tries`` traces; then raises."""
+    """Device ms per call of ``fn``, which launches one kernel: its kernel
+    rows in a ``torch.profiler`` trace of ``n`` calls between spin kernels,
+    which must hold ``n`` rows. A trace that does not is taken again, up to
+    ``tries`` times; then the mean kernel row of the last trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
+    rows = us = 0
     for _ in range(tries):
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(2000)
             for _ in range(n):
                 fn()
+            for _ in range(4):
+                torch.cuda._sleep(2000)
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type != DeviceType.CPU and e.self_device_time_total > 0)
-        if us > 0:
-            return us / n / 1e3
-    raise RuntimeError(f"{tries} profiler traces held no device time")
+        kept = [e for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+                and "spin_kernel" not in e.key]
+        rows = sum(e.count for e in kept)
+        us = sum(e.self_device_time_total for e in kept)
+        if rows == n:
+            break
+    if rows == 0:
+        raise RuntimeError(f"{tries} profiler traces held no kernel rows")
+    return us / rows / 1e3
 
 
 def call_ms(fn, reps: int = 7, inner: int = 50) -> float:
@@ -191,11 +222,11 @@ def variants(src: str) -> dict:
             src, "  cg::cluster_group cluster = cg::this_cluster();",
             "  if (T >= 0) return;\n  cg::cluster_group cluster = cg::this_cluster();"),
         "no draw work (every draw in bin 0)": _edit(
-            src, "const int bin = take ? draw_bin<LMAX>(rv, mask, wr, e, K) : -1;",
-            "const int bin = take ? 0 : -1;"),
+            src, "int bin = take ? draw_bin<LMAX>(rv, mask, wr, e, K) : -1;",
+            "int bin = take ? 0 : -1;"),
         "row loads kept, no draw work": _edit(
-            src, "const int bin = take ? draw_bin<LMAX>(rv, mask, wr, e, K) : -1;",
-            "const int bin = take && (rv[0] ^ rv[LMAX - 1]) == 0x7654321 ? 0 : -1;"),
+            src, "int bin = take ? draw_bin<LMAX>(rv, mask, wr, e, K) : -1;",
+            "int bin = take && (rv[0] ^ rv[LMAX - 1]) == 0x7654321 ? 0 : -1;"),
         "blocks of at most 512 threads": _edit(src, "lmax <= 12 ? 1024", "lmax <= 12 ? 512"),
         "blocks of at most 256 threads": _edit(src, "lmax <= 12 ? 1024", "lmax <= 12 ? 256"),
         "no cluster barriers or remote writes": _edit(_edit(_edit(_edit(
@@ -303,16 +334,122 @@ def run_variants(dev) -> dict:
     return out
 
 
+# (T, L, C, K) of the wide kernel's probes: the `kernels` line's wide row
+# and phase 3's K=1000 case
+WIDE_SHAPES = ((8471, 64, 12, 4), (8471, 40, 8, 1000))
+BY_CLASS = "const bool by_class = K <= n;"
+
+
+def run_wide(dev) -> dict:
+    """Device ms of the wide kernel at WIDE_SHAPES, as it is and with each
+    bin loop forced, and whether each equals the plain version."""
+    rng = np.random.default_rng(7)
+    cases = {}
+    for T, L, C, K in WIDE_SHAPES:
+        args = (torch.as_tensor(rng.integers(-1, K, (T, L)), dtype=torch.int32, device=dev),
+                torch.as_tensor((rng.random((C, L)) < 0.5).astype(np.float32), device=dev),
+                torch.as_tensor(rng.uniform(0.3, 3.0, L), dtype=torch.float32, device=dev),
+                torch.tensor([-1.0], dtype=torch.float32, device=dev))
+        cases[f"T={T} L={L} C={C} K={K}"] = (
+            "", args, (C,), (C, T, L, K), lambda args=args, K=K: ref.mc_correctness_ref(*args, K))
+    src = (_build.CSRC / HEADER).read_text()
+    probes = {"as is": src,
+              "class by class only": _edit(src, BY_CLASS, "const bool by_class = true;"),
+              "first voter only": _edit(src, BY_CLASS, "const bool by_class = false;")}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, header) in enumerate(probes.items()):
+            d = Path(tmp) / f"w{i}"
+            d.mkdir()
+            fn = entry_point("mc_correctness", build_probe("mc_correctness", header, d))
+            row = {}
+            for shape, inputs in cases.items():
+                call = launcher(fn, inputs, dev)
+                row[shape] = {"bitwise": bool(torch.equal(call(0), inputs[4]())),
+                              "ms": device_ms(lambda: call(0), n=20)}
+            out[label] = row
+    return out
+
+
+def build_from(csrc: Path, name: str, workdir: Path) -> Path:
+    """Kernel ``name``'s library built from the sources in ``csrc`` with the
+    port's flags into ``workdir``."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    so = workdir / f"{name}.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(csrc / f"{name}.cu")], check=True, capture_output=True, text=True)
+    return so
+
+
+def run_against(dev, other: Path, rounds: int = 3) -> dict:
+    """Device ms per call of this tree's and checkout ``other``'s
+    libraries at the path shapes, in turns (other first), ``rounds`` each,
+    and whether the two sides' outputs are equal."""
+    inputs = path_inputs(dev)
+    rng = np.random.default_rng(5)
+    B, M, K = 704, 10, 4               # the router's prefix-expanded rows
+    resp = torch.as_tensor(rng.integers(-1, K, (B, M)), dtype=torch.int32, device=dev)
+    w = torch.as_tensor(rng.uniform(0.3, 3.0, (B, M)), dtype=torch.float32, device=dev)
+    empty = torch.as_tensor(rng.uniform(-3.0, -0.5, B), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def belief(fn):
+        bel = torch.empty((B, K), dtype=torch.float32, device=dev)
+        pred = torch.empty((B,), dtype=torch.int32, device=dev)
+
+        def call():                    # one launch into its own outputs
+            err = fn(resp.data_ptr(), w.data_ptr(), empty.data_ptr(), bel.data_ptr(),
+                     pred.data_ptr(), B, M, K, stream)
+            if err:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+            return bel, pred
+        return call
+
+    calls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for side, csrc in (("other", other / "src" / "repro_torch" / "csrc"),
+                           ("this", _build.CSRC)):
+            for name in ("belief_aggregate", "mc_correctness", "mc_correctness_grouped"):
+                fn = entry_point(name, build_from(csrc, name, Path(tmp) / side))
+                if name == "belief_aggregate":
+                    calls[side, name] = belief(fn)
+                else:
+                    run = launcher(fn, inputs[name], dev)
+                    calls[side, name] = lambda run=run: (run(0),)
+        out = {}
+        for name in ("belief_aggregate", "mc_correctness", "mc_correctness_grouped"):
+            mine, theirs = calls["this", name](), calls["other", name]()
+            row = {"equal": all(torch.equal(a, b) for a, b in zip(mine, theirs)),
+                   "other_ms": [], "this_ms": []}
+            for _ in range(rounds):
+                for side in ("other", "this"):
+                    row[f"{side}_ms"].append(device_ms(calls[side, name]))
+            out[name] = row
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--variants", action="store_true",
                         help="time single-edit probes of the shared body")
     parser.add_argument("--timeline", action="store_true",
                         help="stamp the shared body's phases")
+    parser.add_argument("--wide", action="store_true",
+                        help="time the wide kernel's bin loops")
+    parser.add_argument("--against", metavar="DIR", type=Path,
+                        help="time the kernels beside those of the checkout DIR")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("mc_study: needs a CUDA device")
     dev = torch.device("cuda", 0)
+    if opts.wide:
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "wide_ms": run_wide(dev)}))
+        return
+    if opts.against:
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "against": str(opts.against),
+                          "kernels": run_against(dev, opts.against)}))
+        return
     if opts.timeline:
         print(json.dumps({"device": torch.cuda.get_device_name(0),
                           "timeline": run_timeline(dev)}))

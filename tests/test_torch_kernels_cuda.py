@@ -20,21 +20,32 @@ from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
 
-BELIEF = [(16, 4, 3), (37, 8, 5), (130, 12, 77), (832, 12, 4)]
+# (B, M, K): the router's shape (704 rows at M=10), K=1, K below its group
+# width, K past 128 at M=40, and M past what a group holds (32 * 8 arms)
+# with K past the group width
+BELIEF = [(16, 4, 3), (37, 8, 5), (130, 12, 77), (832, 12, 4), (704, 10, 4), (9, 20, 1),
+          (50, 40, 3), (37, 40, 129), (37, 40, 200), (37, 40, 1000), (5, 300, 33)]
 # (G, theta, L, K, C), thetas ragged below theta: the CPU sweep, G=8 at
-# K=77 and at K=4, K=1, K=17 (the last lcm-scaled K), K=18 (the first
-# histogram-chain K), K=128, L=32 (the cap), T below one block and T not a
-# multiple of a cluster's span (8 or 16 blocks of 256 draws)
+# K=77 and at K=4, K=1, K=17 and 18 (the last lcm-scaled K), K=19 (the
+# first histogram-chain K), K=128, L=32 (the last register kernel), T below
+# one block, T not a multiple of a cluster's span (8 or 16 blocks of 256
+# draws), K=200 (folded bins) and the wide kernel at L=33, 64 and 40
 GROUPED = [(1, 512, 4, 2, 3), (5, 700, 8, 5, 4), (3, 300, 12, 7, 6), (8, 16384, 12, 77, 3),
            (8, 5000, 12, 4, 5), (2, 900, 6, 1, 3), (2, 3000, 8, 17, 4), (2, 3000, 8, 18, 4),
-           (1, 5000, 12, 128, 3), (2, 2000, 32, 4, 5), (1, 100, 12, 4, 3), (1, 6001, 12, 4, 3)]
+           (2, 3000, 8, 19, 4), (1, 5000, 12, 128, 3), (2, 2000, 32, 4, 5), (1, 100, 12, 4, 3),
+           (1, 6001, 12, 4, 3), (8, 5000, 12, 200, 3), (8, 16384, 33, 4, 3), (8, 16384, 64, 4, 3),
+           (1, 3000, 40, 200, 3)]
 # (theta, L, C, K): the Fig. 11 shape, one candidate over fewer draws than a
-# block, a ragged last block at K=77, K=17 (the last lcm-scaled K), K=1,
-# K=18 (the first histogram-chain K), K=128, L=32 (the cap) and T not a
-# multiple of a cluster's span
+# block, a ragged last block at K=77, K=17 (lcm-scaled), K=1, K=19 (the
+# first histogram-chain K), K=128, L=32 (the last register kernel), T not a
+# multiple of a cluster's span, K=1000 on 12 arms (folded bins), the wide
+# kernel at L=33, 64, 128 and 256 (class by class) and at L=40, K=1000
+# (first voter by first voter), and the limit L=1024 with K past its 2050
+# slots
 SINGLE = [(8000, 8, 8, 4), (300, 12, 1, 4), (16843, 12, 12, 77), (1000, 8, 6, 17),
-          (700, 8, 3, 1), (1000, 8, 6, 18), (3000, 12, 5, 128), (2500, 32, 7, 4),
-          (4099, 12, 4, 4)]
+          (700, 8, 3, 1), (1000, 8, 6, 19), (3000, 12, 5, 128), (2500, 32, 7, 4),
+          (4099, 12, 4, 4), (2000, 12, 5, 1000), (8471, 33, 8, 4), (8471, 64, 8, 4),
+          (8471, 128, 8, 4), (3000, 256, 4, 4), (2000, 40, 5, 1000), (500, 1024, 3, 3000)]
 
 
 @pytest.fixture
@@ -111,6 +122,19 @@ def test_greedy_on_mc_xi_on_card_matches_cpu(cuda, seed):
         p, b = rng.uniform(0.4, 0.95, 8), rng.uniform(0.1, 0.6, 8)
     on_card = McXiEstimator(prng.key(seed, cuda), p, 4, 8000, use_kernel=True, device=cuda)
     on_cpu = McXiEstimator(prng.key(seed, "cpu"), p, 4, 8000, device="cpu")
+    before = ops.mc_correctness.launches
+    got = tsel.greedy(p, b, 1.0, on_card, empty_value=0.25)
+    assert ops.mc_correctness.launches > before
+    assert got == tsel.greedy(p, b, 1.0, on_cpu, empty_value=0.25)
+
+
+def test_greedy_on_a_40_arm_pool_on_card_matches_cpu(cuda):
+    """GreedyLLM over 40 arms, past the register kernels' 32: the wide
+    kernel on the card picks what the plain version picks on the CPU."""
+    rng = np.random.default_rng(40)
+    p, b = rng.uniform(0.4, 0.95, 40), rng.uniform(0.05, 0.3, 40)
+    on_card = McXiEstimator(prng.key(1, cuda), p, 4, 8000, use_kernel=True, device=cuda)
+    on_cpu = McXiEstimator(prng.key(1, "cpu"), p, 4, 8000, device="cpu")
     before = ops.mc_correctness.launches
     got = tsel.greedy(p, b, 1.0, on_card, empty_value=0.25)
     assert ops.mc_correctness.launches > before

@@ -137,3 +137,35 @@ def test_bf16_falcon_mamba_smoke_forward_matches_jax():
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=0.05 * np.abs(want).max())
+
+
+# arch -> the tolerance as a share of the largest logit. Measured with both
+# CPU backends over seeds 0-2 (SMOKE configs, (2, 63) tokens): the largest
+# gap was 1.7% of the largest logit for smollm (median 2.7-3.2 bf16 ulps)
+# and 5.1% for recurrentgemma (median 5.0-5.6 ulps: its f32 RG-LRU gates
+# meet bf16 activations at more places). That gap is bf16 rounding, not a
+# fault: in seeds 0-1 the port's bf16 logits lie as far from JAX's f32
+# logits of the same weights (0.0096-0.0114 smollm, 0.028-0.039
+# recurrentgemma) as JAX's own bf16 logits do (0.0089-0.0116,
+# 0.025-0.048), while the two f32 forwards agree to 2.2e-6. The tolerance
+# is about twice the largest measured gap; a wrong block moves logits by
+# order 1.
+BF16_LOGIT_SHARE = {"smollm-135m": 0.04, "recurrentgemma-9b": 0.10}
+
+
+@pytest.mark.parametrize("arch", sorted(BF16_LOGIT_SHARE))
+def test_bf16_smoke_forward_matches_jax(arch):
+    """The ``SMOKE`` smollm and recurrentgemma in bf16, the same weights on
+    both packages, beside the falcon-mamba case above."""
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), dtype="bfloat16")
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="bfloat16")
+    params = jax.jit(JaxLM(jcfg).init)(jax.random.key(0))
+    tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 63)).astype(np.int32)
+    want = np.asarray(jax.jit(JaxLM(jcfg).forward)(params, jnp.asarray(tokens)).astype(jnp.float32))
+    model = convert.lm_from_jax(jax.tree.map(np.asarray, params), cfg, "cpu")
+    with torch.inference_mode():
+        got = model(torch.from_numpy(tokens).long())
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=BF16_LOGIT_SHARE[arch] * np.abs(want).max())
