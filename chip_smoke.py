@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, GreedyLLM and the paper's baselines
-on one CUDA card and check them.
+"""Drive the PyTorch port's serving path — the router and the continuous-
+batching front door — GreedyLLM and the paper's baselines on one CUDA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -28,7 +29,11 @@ Phases:
    L=32, and the wide kernel at L=33, 64 and 128 (C=8, K=4) and at L=40,
    K=1000. Then one call of each of the three at its path shape under
    ``torch.profiler`` must show exactly one kernel launch and allocate
-   nothing but its outputs;
+   nothing but its outputs. Past the limits of earlier versions, both mc
+   kernels bitwise at T=300: L=1100 K=4 (int16 staging), L=12 and L=64 at
+   K=40000 (folded bins; int32 staging), L=1100 K=40000 and L=2100 K=4 (no
+   staging), each timed; and the grouped kernel at G=65537 and at
+   C=65537, the single one at C=65537 (chunked launches);
 4. route — the serve defaults (12 arms, K=4, 6 clusters, history 2000,
    batches of 64, eps 0.1, delta 0.01): uniform-budget batches (batched
    planner + device wave loop) and mixed-budget batches (serial planner,
@@ -65,7 +70,13 @@ Phases:
    ``rglru_scan``, ``mamba_scan`` and ``belief_aggregate`` must each be
    above 0; costs stay within budget, a second route of each batch repeats
    the first, and the plans equal those of a router planning on the CPU,
-   bitwise;
+   bitwise. Then the same two batches through a ``BatchScheduler``
+   (``max_batch`` 64, ``max_inflight`` 2, no faults, no labels, counters
+   zeroed before it): predictions, costs and stop waves equal the router's
+   own routes of the same admission groups, and the three model kernels
+   and ``belief_aggregate`` launch; then one batch with faults on smollm
+   (timeout 0.3, error 0.2): smollm classifies exactly its unfailed cells,
+   counted row by row, and only smollm is charged failures;
 10. timing — each model kernel at the LM-arm route's shapes and dtypes
     (``mamba_scan`` with bf16 x, strided bf16 B, C, f32 dt and no initial
     state, bound
@@ -97,7 +108,27 @@ Phases:
     4, then GreedyLLM with ``McXiEstimator(use_kernel=True)`` over the same
     40 arms at budgets 1e-5 and 1e-4, picks and xi card vs CPU. The launch
     counters, zeroed just before the phase, must show ``belief_aggregate``,
-    ``mc_correctness_grouped`` and ``mc_correctness`` above 0 after it.
+    ``mc_correctness_grouped`` and ``mc_correctness`` above 0 after it;
+14. scheduler — ``launch/serve.py --queries 500 --budget 1e-4 --fault-rate
+    0.1 --drift-after 250 --probe-rate 0.02`` at ``--qps 0`` on the port's
+    ``BatchScheduler`` (``max_batch`` 64; faults on every arm, seed 7; a
+    ``FeedbackLog`` with probes; a ``CostLedger`` whose tenant "acme", every
+    other request, is limited to 80% of its spend in an unlimited run, with
+    downgrade tiers 2.5e-5, 5e-5, 1e-4), blocks of 64 submitted and drained
+    in turn with their labels recorded, then one mixed-budget block of 64
+    admitted by ``flush()`` (its plan misses plan serially): ``use_kernel``
+    off and on, each on the card and on the CPU, every block's
+    predictions, costs, planned costs, clusters, budgets, stop waves, modes
+    and request ids, every counter and the ledger's snapshot bitwise. The
+    launch counters are zeroed before and read after each card stream;
+    with ``use_kernel`` on, ``belief_aggregate`` and
+    ``mc_correctness_grouped`` must be above 0. Then ``--qps 5000 --slo-ms
+    50`` on the card (Poisson arrivals, the same faults and probes, no
+    drift, no ledger; timed, not compared) and the
+    device's idle share of one profiled floodgates stream. A
+    ``[scheduler]`` line prints qps, p50/p99, accuracy, planes, flushes,
+    plan counters, failures, drifts, ledger rejections and downgrades and
+    launches per setting.
 
 Two lines before the last is a JSON object listing every kernel with its
 launches, error, bound and times — ``ms``/``plain_ms``/``library_ms`` are
@@ -110,7 +141,11 @@ rows of bare and of bracketed traces), ``call_ms`` the
 CUDA-event wall time per call, host dispatch included; a router kernel's
 ``launches`` count phases 4-5 and its ``lm_route_launches`` phase 9, a
 model kernel's ``launches`` phase 9, ``mc_correctness``'s phase 11; the
-three router kernels' ``wide_pool_launches`` count phase 13.
+three router kernels' ``wide_pool_launches`` count phase 13, the two
+router kernels' ``scheduler_launches`` phase 14's ``use_kernel`` stream,
+and ``lm_scheduler_launches`` the LM arms' scheduler run in phase 9; the
+two ``mc_correctness`` rows carry ``lifted``, their phase-3 cases past
+the limits of earlier versions, timed.
 ``flash_attention`` is listed at the
 recurrentgemma shape with both path shapes under ``by_shape``. Every row
 carries ``launch_floor_ms``, the device time of a one-element ``zero_()``
@@ -432,6 +467,81 @@ BELIEF_CASES = ((130, 12, 77, False), (64, 12, 4, True), (64, 12, 77, True),
 # K=200 (folded bins), and the wide kernel at L=33 and 64
 GROUPED_CASES = ((1, 12, 4), (1, 12, 77), (1, 12, 128), (8, 12, 4), (8, 12, 77), (8, 32, 4),
                  (8, 12, 200), (8, 33, 4), (8, 64, 4), (1, 40, 200))
+# (G, T, L, K, C, label) of the phase-3 checks past the limits of earlier
+# versions (1024 arms, 32767 classes, 65535 groups or candidates a launch),
+# each bitwise for both mc kernels (the single one on group 0)
+LIFTED_CASES = ((2, 300, 1100, 4, 3, "int16 staging, one warp"),
+                (2, 300, 12, 40000, 3, "register kernel, folded bins"),
+                (2, 300, 64, 40000, 3, "int32 staging"),
+                (1, 300, 1100, 40000, 3, "no staging"),
+                (2, 300, 2100, 4, 3, "no staging"))
+# (G, T, L, K, C): one launch a chunk of 65535 groups, or of 65535 candidates
+CHUNKED_CASES = ((65537, 8, 4, 3, 2), (2, 8, 4, 3, 65537))
+
+
+def lifted_inputs(G: int, T: int, L: int, K: int, C: int, dev):
+    """Grouped ``mc_correctness`` arguments at any size: responses uniform
+    over [-1, K) with half the arms on classes -1..2 (so class 0 draws
+    votes and ties), random masks with the last candidate empty, the last
+    seventh of the draws invalid."""
+    rng = np.random.default_rng(L + K + G + C)
+    resp = rng.integers(-1, K, (G, T, L)).astype(np.int32)
+    resp[:, :, : L // 2] = rng.integers(-1, 3, (G, T, L // 2))
+    masks = (rng.random((G, C, L)) < 0.6).astype(np.float32)
+    masks[:, -1] = 0.0
+    valid = np.ones((G, T), np.float32)
+    valid[:, T - T // 7:] = 0.0
+    arrays = (resp, masks, rng.uniform(0.3, 3.0, (G, L)).astype(np.float32),
+              rng.uniform(-3.0, -0.5, G).astype(np.float32), valid,
+              valid.sum(axis=1).astype(np.float32))
+    return tuple(torch.as_tensor(a, device=dev) for a in arrays)
+
+
+def single_of(args):
+    """The single-pool kernel's arguments: group 0 of grouped ones."""
+    resp, masks, w, empty = args[:4]
+    return resp[0], masks[0], w[0], empty[:1]
+
+
+def check_lifted(dev, errs: dict) -> list:
+    """Both mc kernels past the limits of earlier versions, each bitwise
+    its plain version; returns the timed rows of the lifted cases (device
+    ms of one call at the checked shape, beside its bound)."""
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    for G, T, L, K, C, label in LIFTED_CASES:
+        args = lifted_inputs(G, T, L, K, C, dev)
+        one = single_of(args)
+        shape = f"G={G} T={T} L={L} K={K} C={C}"
+        errs["mc_correctness_grouped"] = max(errs["mc_correctness_grouped"], kernel_error(
+            "mc_correctness_grouped", ops.mc_correctness_grouped(*args, K),
+            ref.mc_correctness_grouped_ref(*args, K), f"{label}: {shape}"))
+        errs["mc_correctness"] = max(errs["mc_correctness"], kernel_error(
+            "mc_correctness", ops.mc_correctness(*one, K), ref.mc_correctness_ref(*one, K),
+            f"{label}: T={T} L={L} C={C} K={K}"))
+        for name, fn, a, bound in (("mc_correctness_grouped", ops.mc_correctness_grouped, args,
+                                    mc_bound(args, K)),
+                                   ("mc_correctness", ops.mc_correctness, one,
+                                    single_bound(one, K))):
+            b_ms, b_by = bound_ms(*bound)
+            ms, ms_source = device_ms(lambda: fn(*a, K), n=5, launches=1)
+            rows.append({"name": name, "case": label, "shape": shape, "ms": ms,
+                         "ms_source": ms_source, "bound_ms": b_ms, "bound_by": b_by})
+        del args, one
+        torch.cuda.empty_cache()
+    for G, T, L, K, C in CHUNKED_CASES:
+        args = lifted_inputs(G, T, L, K, C, dev)
+        shape = f"G={G} T={T} L={L} K={K} C={C}"
+        errs["mc_correctness_grouped"] = max(errs["mc_correctness_grouped"], kernel_error(
+            "mc_correctness_grouped", ops.mc_correctness_grouped(*args, K),
+            ref.mc_correctness_grouped_ref(*args, K), f"chunked launches: {shape}"))
+        if C > 65535:
+            one = tuple(t.contiguous() for t in single_of(args))
+            errs["mc_correctness"] = max(errs["mc_correctness"], kernel_error(
+                "mc_correctness", ops.mc_correctness(*one, K), ref.mc_correctness_ref(*one, K),
+                f"chunked launches: T={T} L={L} C={C} K={K}"))
+    return rows
 
 
 def check_kernels(dev) -> dict:
@@ -461,6 +571,7 @@ def check_kernels(dev) -> dict:
     one_launch("mc_correctness", lambda: ops.mc_correctness(*single, 4))
     one_launch("mc_correctness_grouped", lambda: ops.mc_correctness_grouped(*grouped, 4))
     one_launch("belief_aggregate", lambda: ops.belief_aggregate(*belief, 4))
+    errs["lifted"] = check_lifted(dev, errs)
     return errs
 
 
@@ -902,13 +1013,103 @@ def lm_route_phase(dev) -> dict:
     compare_plans(router, cpu_router)
     log(f"  routes repeat exactly; {len(router.selector._cache)} plans equal the CPU planner's "
         f"bitwise")
+    sched_launches = lm_scheduler_check(router, work, results)
+    lm_fault_check(router, arms, work[1])
     breakdown = {arm.name: forward_breakdown(arm, work[0][0]) for arm in arms}
     for name, b in breakdown.items():
         log(f"  {name} forward breakdown: " + ", ".join(f"{k} {v:.3f}" for k, v in b.items()))
     del arms, router, cpu_router
     torch.cuda.empty_cache()
     return {"launches": launches, "forward_ms": fwd_ms, "init_s": init_s, "main_s": main_s,
-            "breakdown": breakdown}
+            "breakdown": breakdown, "scheduler_launches": sched_launches}
+
+
+def admission_groups(budgets, n: int):
+    """Row groups of one admission of ``n`` rows as the scheduler splits it:
+    one group per budget, in first-occurrence order, FIFO inside."""
+    budgets = np.broadcast_to(np.asarray(budgets, np.float64), (n,))
+    if (budgets == budgets[0]).all():
+        return [np.arange(n)]
+    _, first = np.unique(budgets, return_index=True)
+    return [np.flatnonzero(budgets == budgets[i]) for i in np.sort(first)]
+
+
+def lm_scheduler_check(router, work, results) -> dict:
+    """The LM-arm route's two batches through a ``BatchScheduler``
+    (``max_batch`` 64, ``max_inflight`` 2, no faults, no labels): with
+    nothing to fold, each admission group routes as the router routes that
+    group alone, so predictions, costs and stop waves equal the router's
+    own routes of the same groups (the uniform batch: its route above).
+    Returns the model kernels' launches of the scheduler's run."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import BatchScheduler
+
+    ops.reset_launch_counts()
+    sched = BatchScheduler(router, max_batch=64, max_inflight=2, max_wait_s=0.0)
+    blocks = [sched.submit_many(q, e, b) for q, e, b in work]
+    sched.drain()
+    torch.cuda.synchronize()
+    launches = {name: getattr(ops, name).launches for name in
+                ("flash_attention", "rglru_scan", "mamba_scan", "belief_aggregate")}
+    for i, ((q, e, b), blk) in enumerate(zip(work, blocks)):
+        want = np.zeros((3, q.shape[0]))
+        for rows in admission_groups(b, q.shape[0]):
+            res = (results[i] if rows.size == q.shape[0]
+                   else router.route_batch(q[rows], e[rows], np.asarray(b)[rows]))
+            want[:, rows] = res.predictions, res.costs, res.stop_waves
+        got = np.stack([blk.predictions, blk.costs, blk.stop_waves])
+        if not np.array_equal(got, want):
+            bad = np.flatnonzero((got != want).any(axis=0))
+            raise AssertionError(f"LM batch {i} through the scheduler differs from the router's "
+                                 f"routes at rows {bad[:10].tolist()}")
+    st = sched.stats
+    log(f"  scheduler (max_batch 64, max_inflight 2): both batches equal the router's routes of "
+        f"their admission groups; groups {st['batches']}, planes jit={st['spec_jit']} "
+        f"ref={st['spec_reference']}, inflight peak {st['inflight_peak']}; launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was never launched through the scheduler")
+    return launches
+
+
+def lm_fault_check(router, arms, batch) -> None:
+    """The mixed-budget batch (whose plans lead with smollm on some rows)
+    with faults on smollm (timeout 0.3, error 0.2): failed cells are never
+    invoked, so smollm classifies exactly the scheduled, unfailed cells of
+    its arm (its forwards counted row by row); the failures the wavefront
+    attempted are smollm's alone, their slots re-routed in-wave, and the
+    outputs stay well formed."""
+    from repro_torch.distributed.fault import FAULT_ERROR, FAULT_TIMEOUT, FaultPolicy
+
+    q, e, b = batch
+    policy = FaultPolicy(len(arms), router.num_classes, seed=7).set_arm(0, timeout=0.3, error=0.2)
+    seen = []
+    plain = arms[0].classify_batch
+    arms[0].classify_batch = lambda tokens: (seen.append(len(tokens)), plain(tokens))[1]
+    router.engine.fault_policy = policy
+    try:
+        res = router.route_batch(q, e, b)
+        torch.cuda.synchronize()
+    finally:
+        router.engine.fault_policy = None
+        del arms[0].classify_batch
+    sched_T = res.fault_schedule.T
+    codes = policy.grid_codes(sched_T)
+    failed = (codes == FAULT_TIMEOUT) | (codes == FAULT_ERROR)
+    want = int(((sched_T == 0) & ~failed).sum())
+    if sum(seen) != want or failed.sum() == 0 or res.arm_fault_counts[0] == 0:
+        raise AssertionError(f"smollm classified {sum(seen)} rows under faults, want {want} "
+                             f"({int(failed.sum())} cells failed)")
+    ok = (np.all((res.predictions >= 0) & (res.predictions < router.num_classes))
+          and np.all(res.costs <= np.asarray(b) + 1e-15)
+          and set(np.flatnonzero(res.arm_fault_counts).tolist()) <= {0}
+          and np.all(res.responses[res.invoked] >= 0))
+    if not ok:
+        raise AssertionError("the faulted LM batch gave malformed output")
+    log(f"  faults on smollm: {int(failed.sum())} of {int((sched_T == 0).sum())} smollm cells "
+        f"failed, smollm classified {sum(seen)} rows in {len(seen)} forwards (= the unfailed "
+        f"cells); attempted failures {res.arm_fault_counts.tolist()}, served per arm "
+        f"{res.arm_query_counts.tolist()}")
 
 
 MODEL_KERNELS = ("flash_attention", "rglru_scan", "mamba_scan")
@@ -1288,6 +1489,214 @@ def wide_pool_phase(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the continuous-batching scheduler at the serve defaults
+# ---------------------------------------------------------------------------
+
+SERVE_QUERIES = 500              # launch/serve.py --queries
+SERVE_BUDGET = 1e-4              # --budget
+SERVE_FAULT_RATE = 0.1           # --fault-rate: split 50/30/20 over timeout/error/degrade
+SERVE_DRIFT_AFTER = 250          # --drift-after
+SERVE_PROBE_RATE = 0.02          # --probe-rate
+SERVE_TIERS = (2.5e-5, 5e-5, 1e-4)   # the ledger's downgrade ladder
+LEDGER_SHARE = 0.8               # the limited tenant's share of its unlimited spend
+
+
+def serve_stream(where, use_kernel: bool, limit, stream) -> dict:
+    """``launch/serve.py --queries 500 --budget 1e-4 --fault-rate 0.1
+    --drift-after 250 --probe-rate 0.02`` at ``--qps 0`` (the floodgates)
+    on the port, with a ``CostLedger`` whose tenant "acme" (every other
+    request) is limited to ``limit`` USD (None: unlimited): fresh workload,
+    pool, fault policy and estimator; blocks of ``max_batch`` submitted and
+    drained in turn, their labels recorded, the truth drifted after 250
+    queries; then one mixed-budget block of 64 (budgets the 0.3 and 0.8
+    cost quantiles x 2.5) admitted by ``flush()``, one heterogeneous route
+    whose plan misses plan serially. Admission is by size, never by the
+    clock. Returns the blocks, the counters, the ledger snapshot and the
+    stream's wall time."""
+    from repro_torch import convert
+    from repro_torch.distributed.fault import FaultPolicy
+    from repro_torch.serving import BatchScheduler, CostLedger, FeedbackLog
+
+    wl_state, history, arms, payloads, qemb, labels, mixed = stream
+    router = convert.router_from_state(wl_state, history, arms, 4, eps=0.1, delta=0.01,
+                                       use_kernel=use_kernel, device=where)
+    engine = router.engine
+    wl = engine.arms[0].workload
+    engine.fault_policy = FaultPolicy(len(arms), 4, seed=7).set_arms(
+        range(len(arms)), timeout=0.5 * SERVE_FAULT_RATE, error=0.3 * SERVE_FAULT_RATE,
+        degrade=0.2 * SERVE_FAULT_RATE)
+    ledger = CostLedger(num_arms=len(arms))
+    if limit is not None:
+        ledger.set_limit("acme", limit)
+    sched = BatchScheduler(router, max_batch=64, max_wait_s=0.002,
+                           feedback=FeedbackLog(router.estimator, probe_rate=SERVE_PROBE_RATE),
+                           ledger=ledger, budget_tiers=SERVE_TIERS)
+    sched.prewarm(budgets=[SERVE_BUDGET])
+    tenants = np.where(np.arange(SERVE_QUERIES) % 2 == 0, "acme", "zen").astype(object)
+    drifted = False
+    blocks = []
+    t0 = time.perf_counter()
+    for lo in range(0, SERVE_QUERIES, 64):
+        hi = min(SERVE_QUERIES, lo + 64)
+        blk = sched.submit_many(payloads[lo:hi], qemb[lo:hi], SERVE_BUDGET, tenant=tenants[lo:hi])
+        sched.drain()
+        sched.record_outcomes(blk.request_ids, labels[lo:hi])
+        blocks.append(blk)
+        if not drifted and hi >= SERVE_DRIFT_AFTER:
+            drifted = True
+            for t in range(3):           # half of the 6 clusters
+                wl.drift_arms(router.plans.plan(t, SERVE_BUDGET).order, 0.30, clusters=[t])
+    sched.apply_feedback()
+    m_pay, m_emb, m_bud = mixed
+    blk = sched.submit_many(m_pay, m_emb, m_bud, tenant="zen")
+    sched.flush()
+    blocks.append(blk)
+    if where.type == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    stats = dict(sched.stats)
+    return {"blocks": blocks, "stats": stats, "ledger": json.dumps(ledger.snapshot(), sort_keys=True),
+            "wall_s": wall_s, "latency": sched.latency_stats(), "labels": labels,
+            "acme_spent": ledger.tenant("acme")["spent"]}
+
+
+def stream_inputs():
+    """The serve-default state and one 500-query stream, made once."""
+    wl, wl_state, history, arms = serve_state(K=4)
+    rng = np.random.default_rng(1)
+    cid, qemb, labels = wl.sample_queries(SERVE_QUERIES, rng)
+    mcid, memb, mlab = wl.sample_queries(64, rng)
+    mixed_budgets = rng.choice(np.quantile(wl.costs, [0.3, 0.8]) * 2.5, size=64)
+    return (wl_state, history, arms, np.column_stack([cid, labels]), qemb, labels,
+            (np.column_stack([mcid, mlab]), memb, mixed_budgets))
+
+
+def compare_streams(card: dict, cpu: dict, label: str) -> None:
+    """Every time-free result of two ``serve_stream`` runs, bitwise."""
+    for i, (g, c) in enumerate(zip(card["blocks"], cpu["blocks"])):
+        for field in ("predictions", "costs", "planned_costs", "clusters", "budgets",
+                      "stop_waves", "modes", "request_ids"):
+            a, b = getattr(g, field), getattr(c, field)
+            if not np.array_equal(a, b):
+                rows = np.flatnonzero(a != b)
+                raise AssertionError(f"{label} block {i}: {field} differ at rows "
+                                     f"{rows[:10].tolist()}: card {a[rows[:3]].tolist()} "
+                                     f"cpu {b[rows[:3]].tolist()}")
+    if card["stats"] != cpu["stats"]:
+        diff = {k: (card["stats"][k], cpu["stats"].get(k)) for k in card["stats"]
+                if card["stats"][k] != cpu["stats"].get(k)}
+        raise AssertionError(f"{label}: scheduler counters differ: {diff}")
+    if card["ledger"] != cpu["ledger"]:
+        raise AssertionError(f"{label}: ledger snapshots differ")
+
+
+def stream_summary(run: dict, launches: dict) -> dict:
+    st = run["stats"]
+    preds = np.concatenate([b.predictions for b in run["blocks"][:-1]])
+    lat = run["latency"]
+    return {
+        "qps": st["completed"] / run["wall_s"], "p50_ms": lat["p50_s"] * 1e3,
+        "p99_ms": lat["p99_s"] * 1e3, "accuracy": float(np.mean(preds == run["labels"])),
+        "planes": {"jit": st["spec_jit"], "reference": st["spec_reference"]},
+        "flushes": st["flushes"], "groups": st["batches"],
+        "plan": {k: st[f"plan_{k}"] for k in ("hits", "misses", "prefetches", "batch_replans",
+                                             "batch_replanned", "stale_dropped")},
+        "attempted_failures": st["degradation_failures"], "degraded": st["degradation_degraded"],
+        "drifts": st["feedback_drifts"], "probes": st["feedback_probes"],
+        "rejected": st["ledger_rejected"], "downgraded": st["ledger_downgraded"],
+        "completed": st["completed"], "launches": launches,
+    }
+
+
+def poisson_stream(dev, stream, qps: float = 5000.0, slo_ms: float = 50.0) -> dict:
+    """``--qps 5000 --slo-ms 50`` with the same faults and probes (labels
+    recorded as blocks complete; no drift, no ledger), on the card: Poisson arrivals submitted in the bursts the
+    clock delivers, the scheduler pumped between them (serve.py's loop).
+    Timing only: arrivals follow the clock, so this run is not compared."""
+    from repro_torch import convert
+    from repro_torch.distributed.fault import FaultPolicy
+    from repro_torch.serving import BatchScheduler, FeedbackLog
+
+    wl_state, history, arms, payloads, qemb, labels, _ = stream
+    router = convert.router_from_state(wl_state, history, arms, 4, eps=0.1, delta=0.01,
+                                       use_kernel=True, device=dev)
+    router.engine.fault_policy = FaultPolicy(len(arms), 4, seed=7).set_arms(
+        range(len(arms)), timeout=0.05, error=0.03, degrade=0.02)
+    sched = BatchScheduler(router, max_batch=64, max_wait_s=0.002,
+                           feedback=FeedbackLog(router.estimator, probe_rate=SERVE_PROBE_RATE))
+    sched.prewarm(budgets=[SERVE_BUDGET])
+    rng = np.random.default_rng(2)
+    t0 = time.monotonic()
+    arrivals = t0 + np.cumsum(rng.exponential(1.0 / qps, SERVE_QUERIES))
+    blocks, sent, recorded = [], 0, 0
+    while sent < SERVE_QUERIES:
+        due = int(np.searchsorted(arrivals, time.monotonic(), side="right"))
+        if due > sent:
+            blocks.append((sched.submit_many(payloads[sent:due], qemb[sent:due], SERVE_BUDGET,
+                                             slo_s=slo_ms / 1e3, arrival_s=arrivals[sent:due]),
+                           labels[sent:due]))
+            sent = due
+        sched.pump()
+        while recorded < len(blocks) and blocks[recorded][0].done():
+            sched.record_outcomes(blocks[recorded][0].request_ids, blocks[recorded][1])
+            recorded += 1
+    sched.drain()
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    lat = sched.latency_stats()
+    preds = np.concatenate([b.predictions for b, _ in blocks])
+    return {"offered_qps": qps, "slo_ms": slo_ms, "qps": lat["count"] / wall_s,
+            "p50_ms": lat["p50_s"] * 1e3, "p99_ms": lat["p99_s"] * 1e3,
+            "accuracy": float(np.mean(preds == labels)), "flushes": sched.stats["flushes"],
+            "groups": sched.stats["batches"]}
+
+
+def scheduler_phase(dev) -> dict:
+    """The serve-default stream through ``BatchScheduler`` with faults,
+    feedback and a cost ledger, ``use_kernel`` off and on, each on the card
+    and on the CPU: every block's predictions, costs, planned costs,
+    clusters, budgets, stop waves, modes and request ids, every counter
+    and the ledger's snapshot bitwise. The limited tenant's limit is 80% of
+    its spend in an unlimited CPU run. The launch counters are zeroed
+    before and read after each card run; with ``use_kernel`` on,
+    ``belief_aggregate`` and ``mc_correctness_grouped`` must both be above
+    0. Then, on the card only: a Poisson stream, and the device's idle
+    share of one profiled floodgates stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    cpu = torch.device("cpu")
+    stream = stream_inputs()
+    limit = LEDGER_SHARE * serve_stream(cpu, False, None, stream)["acme_spent"]
+    out = {"acme_limit_usd": limit}
+    for use_kernel in (False, True):
+        ops.reset_launch_counts()
+        card = serve_stream(dev, use_kernel, limit, stream)
+        launches = {name: getattr(ops, name).launches
+                    for name in ("belief_aggregate", "mc_correctness_grouped")}
+        on_cpu = serve_stream(cpu, use_kernel, limit, stream)
+        compare_streams(card, on_cpu, f"use_kernel={use_kernel}")
+        row = stream_summary(card, launches)
+        row["cpu_qps"] = on_cpu["stats"]["completed"] / on_cpu["wall_s"]
+        out["kernel" if use_kernel else "f64"] = row
+        log(f"  use_kernel={use_kernel}: card == cpu (bitwise: {len(card['blocks'])} blocks, "
+            f"counters, ledger); {json.dumps(row)}")
+        if use_kernel:
+            for name, n in launches.items():
+                if n <= 0:
+                    raise AssertionError(f"kernel {name} was never launched by the scheduler")
+        if row["rejected"] + row["downgraded"] == 0 or row["attempted_failures"] == 0:
+            raise AssertionError(f"the stream exercised no ledger limit or no fault: {row}")
+    out["poisson"] = poisson_stream(dev, stream)
+    log(f"  poisson: {json.dumps(out['poisson'])}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run = serve_stream(dev, True, limit, stream)
+    busy = sum(e.self_device_time_total for e in device_events(prof)) / 1e6
+    out["profiled"] = {"wall_s": run["wall_s"], "device_busy_s": busy,
+                       "idle_share": 1.0 - busy / run["wall_s"]}
+    log(f"  profiled floodgates stream (use_kernel=True): {json.dumps(out['profiled'])}")
+    return out
 
 
 def main() -> int:
@@ -1332,6 +1741,7 @@ def main() -> int:
     t0 = time.perf_counter()
     log("[3 kernels vs plain, on the card]")
     errs = check_kernels(dev)
+    lifted = errs.pop("lifted")
     phases["kernels_s"] = time.perf_counter() - t0
 
     ops.reset_launch_counts()
@@ -1472,6 +1882,19 @@ def main() -> int:
     for row in kernels:
         if row["name"] in wide_launches:
             row["wide_pool_launches"] = wide_launches[row["name"]]
+
+    t0 = time.perf_counter()
+    log("[14 the scheduler at the serve defaults: faults, feedback, ledger; card vs cpu]")
+    sched = scheduler_phase(dev)
+    phases["scheduler_s"] = time.perf_counter() - t0
+    log(f"[scheduler] {json.dumps(sched)}")
+    for row in kernels:
+        if row["name"] in ("belief_aggregate", "mc_correctness_grouped"):
+            row["scheduler_launches"] = sched["kernel"]["launches"][row["name"]]
+        if row["name"] in ("flash_attention", "rglru_scan", "mamba_scan", "belief_aggregate"):
+            row["lm_scheduler_launches"] = lm["scheduler_launches"][row["name"]]
+        if row["name"] in ("mc_correctness", "mc_correctness_grouped"):
+            row["lifted"] = [r for r in lifted if r["name"] == row["name"]]
     log(f"[earlier kernels] {json.dumps(earlier_kernels(kernels))}")
     floor = launch_floor_ms(dev)
     for row in kernels:

@@ -9,7 +9,9 @@ In the JAX package all of it is numpy, so it crosses as plain numpy dicts:
   ``centers``, ``p_true`` and ``costs``;
 * ``history``: ``{"table": (N, L), "emb": (N, d), "assign": (N,)}``, the
   historical correctness table, embeddings and cluster assignment;
-* ``arms``: one ``{"name", "arm_index", "seed", "metered"}`` dict per arm.
+* ``arms``: one ``{"name", "arm_index", "seed", "metered"}`` dict per arm;
+* ``fault_policy``: a ``FaultPolicy``'s shape, seed, epoch and per-arm
+  timeout / error / degrade rates.
 
 The ``*_state`` readers take any object with the reference's attribute
 names, so ``workload_state(jax_workload)`` and
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.core.estimation import SuccessProbEstimator
 from repro_torch.data.synth import OracleWorkload
+from repro_torch.distributed.fault import FaultPolicy
 from repro_torch.models import LM, ModelConfig, unstack_params
 from repro_torch.serving.engine import LMArm, OracleArm, PoolEngine
 from repro_torch.serving.router import ThriftRouter
@@ -72,6 +75,27 @@ def engine_from_state(workload: OracleWorkload, arms: List[Dict]) -> PoolEngine:
                   metered=a.get("metered", False))
         for a in arms
     ])
+
+
+def fault_policy_state(policy) -> Dict:
+    """Numpy dict of a ``FaultPolicy`` (either package's)."""
+    return {
+        "num_arms": int(policy.num_arms), "num_classes": int(policy.num_classes),
+        "seed": int(policy.seed), "epoch": int(policy.epoch),
+        "timeout": np.array(policy._timeout, np.float64),
+        "error": np.array(policy._error, np.float64),
+        "degrade": np.array(policy._degrade, np.float64),
+    }
+
+
+def fault_policy_from_state(state: Dict) -> FaultPolicy:
+    """The port's ``FaultPolicy`` drawing exactly as ``state``'s does."""
+    policy = FaultPolicy(state["num_arms"], state["num_classes"], seed=state["seed"])
+    policy.epoch = int(state["epoch"])
+    for arm in range(policy.num_arms):
+        policy.set_arm(arm, timeout=state["timeout"][arm], error=state["error"][arm],
+                       degrade=state["degrade"][arm])
+    return policy
 
 
 def estimator_from_history(history: Dict, **kwargs) -> SuccessProbEstimator:

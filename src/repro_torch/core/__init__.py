@@ -20,6 +20,7 @@ from .estimation import (
     hoeffding_interval,
     median_boost_rounds,
     median_boosted_interval,
+    wilson_interval,
 )
 from .mc import (
     GroupedXiEstimator,
@@ -49,7 +50,7 @@ __all__ = [
     "sample_pool_responses_grouped", "theta_for", "xi_from_responses",
     "greedy", "gamma_value_batch", "sur_greedy", "sur_greedy_many",
     "adaptive_invoke", "ThriftLLM",
-    "SuccessProbEstimator", "ClusterStats", "hoeffding_interval",
+    "SuccessProbEstimator", "ClusterStats", "hoeffding_interval", "wilson_interval",
     "median_boosted_interval", "median_boost_rounds", "kmeans",
     "FrugalCascade", "blender_all", "topk_weighted", "single_best", "random_subset",
 ]

@@ -1,7 +1,6 @@
 """Success-probability estimation from historical data (Section 3.1 + 4.4).
 
-Numpy; the PyTorch port's copy of ``repro/core/estimation.py`` without
-the Wilson interval, which only the feedback loop (a later slice) reads.
+Numpy; the PyTorch port's copy of ``repro/core/estimation.py``.
 
 Pipeline: embed historical queries -> cluster (K-means / DBSCAN) -> per-cluster
 per-arm accuracy means p-hat with confidence intervals (Hoeffding / Wilson)
@@ -38,6 +37,29 @@ def hoeffding_interval(p_hat: np.ndarray, n, delta: float) -> Tuple[np.ndarray, 
     half = np.sqrt(math.log(2.0 / delta) / (2.0 * np.maximum(n, 1.0)))
     lo = np.clip(p_hat - half, 0.0, 1.0)
     hi = np.clip(p_hat + half, 0.0, 1.0)
+    return np.where(n > 0, lo, 0.0), np.where(n > 0, hi, 1.0)
+
+
+def wilson_interval(p_hat: np.ndarray, n, delta: float) -> Tuple[np.ndarray, np.ndarray]:
+    """Wilson score interval — tighter than Hoeffding at small n.
+
+    Accepts scalar or per-arm array ``n`` like :func:`hoeffding_interval`;
+    the serving drift detector (``serving/feedback.py``) relies on the
+    per-arm form to compare old-vs-new estimates at their own counts.
+    """
+    n = np.asarray(n, np.float64)
+    if n.ndim == 0 and n <= 0:
+        return np.zeros_like(p_hat), np.ones_like(p_hat)
+    # two-sided normal quantile via inverse erf
+    from scipy.special import erfinv
+
+    z = math.sqrt(2.0) * float(erfinv(1.0 - delta))
+    safe = np.maximum(n, 1.0)
+    denom = 1.0 + z * z / safe
+    center = (p_hat + z * z / (2 * safe)) / denom
+    half = z * np.sqrt(p_hat * (1 - p_hat) / safe + z * z / (4 * safe * safe)) / denom
+    lo = np.clip(center - half, 0.0, 1.0)
+    hi = np.clip(center + half, 0.0, 1.0)
     return np.where(n > 0, lo, 0.0), np.where(n > 0, hi, 1.0)
 
 
@@ -89,9 +111,11 @@ def fold_counts(
     """Exact streaming fold of per-arm (successes, attempts) feedback into a
     (p_hat, counts) estimate; arms with zero attempts keep their estimate.
 
-    :meth:`SuccessProbEstimator.update_counts` commits with it (the
-    feedback slice's drift detector will pre-compute its candidate with it
-    too). Returns ``(new_p_hat, new_counts)``.
+    The single fold authority: :meth:`SuccessProbEstimator.update_counts`
+    commits with it and the serving drift detector
+    (``serving/feedback.py``) pre-computes its candidate with it, so the
+    drift decision can never diverge from what actually folds in.
+    Returns ``(new_p_hat, new_counts)``.
     """
     new_counts = counts + attempts
     new_p = np.where(
@@ -111,10 +135,13 @@ def fold_counts(
 class ClusterStats:
     """Per-cluster success-probability estimates over the pool.
 
-    Besides the estimate itself, a cluster carries per-arm observation
-    counts (online updates may observe arms unevenly) and the estimator
-    ``version`` of its last change, which plan caches key on. The drift
-    detector's estimate snapshot waits for the feedback slice.
+    Besides the estimate itself, a cluster carries the state the online
+    feedback loop needs: per-arm observation counts (served traffic observes
+    arms unevenly — only invoked waves yield feedback), the estimator
+    ``version`` of the last *plan-visible* change, and a snapshot of the
+    estimate at that version. Plan caches key on ``version``; the drift
+    detector compares fresh feedback against the snapshot, so feedback that
+    merely confirms the current estimate never invalidates a plan.
     """
 
     centroid: np.ndarray          # (d,) embedding centroid
@@ -123,11 +150,17 @@ class ClusterStats:
     hi: np.ndarray                # (L,)
     count: int
     arm_counts: Optional[np.ndarray] = None   # (L,) per-arm observations
-    version: int = 0              # estimator version of last change
+    version: int = 0              # estimator version of last plan-visible change
+    plan_p_hat: Optional[np.ndarray] = None   # estimate snapshot at `version`
+    plan_arm_counts: Optional[np.ndarray] = None
 
     def __post_init__(self):
         if self.arm_counts is None:
             self.arm_counts = np.full(self.p_hat.shape, float(self.count))
+        if self.plan_p_hat is None:
+            self.plan_p_hat = self.p_hat
+        if self.plan_arm_counts is None:
+            self.plan_arm_counts = self.arm_counts
 
 
 class SuccessProbEstimator:
@@ -157,10 +190,10 @@ class SuccessProbEstimator:
         self.num_arms = table.shape[1]
         self.clusters: Dict[int, ClusterStats] = {}
         self._global_p = table.mean(axis=0)
-        # version: strictly monotone, bumped by every update.
-        # plan_version: the version of the last change — the coarse key the
-        # PlanService's batch tables invalidate on (the feedback slice adds
-        # confirming folds that bump `version` but leave it put).
+        # version: strictly monotone, bumped by every feedback fold.
+        # plan_version: the version of the last *plan-visible* change — the
+        # coarse key the PlanService's batch tables invalidate on (confirming
+        # feedback bumps `version` but leaves `plan_version` put).
         self.version = 0
         self.plan_version = 0
 
@@ -248,6 +281,7 @@ class SuccessProbEstimator:
         attempts: np.ndarray,
         queries: int = 0,
         delta: float = 0.01,
+        plan_visible: bool = True,
     ) -> ClusterStats:
         """Vectorized per-(cluster, arm) feedback fold — the online loop's
         entry point (Sec. 3.1's growing table, fed from served traffic).
@@ -257,10 +291,10 @@ class SuccessProbEstimator:
             counts. ``attempts[l]`` may be 0 for arms the serving plans never
             invoked — those arms keep their current estimate and interval.
           queries: labeled queries this fold represents (bookkeeping only).
-
-        Every fold is plan-visible: it bumps the cluster's ``version`` and
-        the estimator's ``plan_version``, so cached plans for the cluster
-        invalidate.
+          plan_visible: bump the cluster's plan ``version`` (and the
+            estimator's ``plan_version``) and re-snapshot the estimate. The
+            drift detector passes ``False`` for feedback that confirms the
+            current estimate, so plan caches keep serving.
 
         Counts accumulate exactly, so folding the same feedback in any batch
         order yields the same estimate (up to float rounding), and the
@@ -275,8 +309,11 @@ class SuccessProbEstimator:
         st.count = int(st.count + queries)
         st.lo, st.hi = hoeffding_interval(st.p_hat, st.arm_counts, delta)
         self.version += 1
-        st.version = self.version
-        self.plan_version = self.version
+        if plan_visible:
+            st.version = self.version
+            st.plan_p_hat = st.p_hat
+            st.plan_arm_counts = st.arm_counts
+            self.plan_version = self.version
         return st
 
     def touch(self, cluster_id: Optional[int] = None) -> int:
@@ -286,12 +323,15 @@ class SuccessProbEstimator:
         :meth:`update` / :meth:`update_counts` bump — a direct assignment
         to ``clusters[c].p_hat`` is invisible to them and would keep stale
         plans serving. Call this afterwards (one cluster, or all with
-        ``None``) to bump the version(s), making the change plan-visible.
-        Returns the new estimator version."""
+        ``None``) to bump the version(s) and re-snapshot, making the
+        change plan-visible. Returns the new estimator version."""
         cids = list(self.clusters) if cluster_id is None else [int(cluster_id)]
         for cid in cids:
+            st = self.clusters[cid]
             self.version += 1
-            self.clusters[cid].version = self.version
+            st.version = self.version
+            st.plan_p_hat = st.p_hat
+            st.plan_arm_counts = st.arm_counts
         self.plan_version = self.version
         return self.version
 

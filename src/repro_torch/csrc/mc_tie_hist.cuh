@@ -37,13 +37,14 @@
 //    f32. No block reads another's shared memory, so the other ranks exit
 //    at once.
 //
-// L > 32 (`mc_tie_hist_wide_kernel`, shared memory; sized at launch):
+// L > 32 (`mc_tie_hist_wide_kernel<Id, STAGED>`, shared memory; sized at
+// launch):
 // 1. The candidate's mask becomes a multi-word arm bitmask in shared
 //    memory (one ballot per 32 arms), and the masked arms' indices and log
 //    weights a list in ascending arm order (each arm's place is the
 //    popcount of the mask below it).
 // 2. Each warp takes 32 draws at a time: it stages their masked arms' class
-//    ids in shared memory as int16 (-1 for no vote), lanes along the arms
+//    ids in shared memory as Id (-1 for no vote), lanes along the arms
 //    (a lane's 32 loads, one a draw, in flight together), then each lane
 //    works out one draw's bin from its column over the masked arms only,
 //    in ascending arm order, so each class sum is the same f32 chain as
@@ -52,6 +53,12 @@
 //    from each class's first voter on (`bin_by_first_voter`, at most
 //    2 n min(K, n) steps, but each lane's own). Measured on an H100
 //    (PERF.md): each is the faster at L=64 K=4 and at L=40 K=1000.
+//    Id is int16 where K <= 32767 and int32 past it, by an explicit branch
+//    on K. Where one warp's staging (32 L ids) would pass kWideStageBytes,
+//    STAGED is false, by an explicit branch on L and the id width: no
+//    staging, and each lane reads its column straight from `resp` (the
+//    same two loops over `GlobalCol`; the first-voter loop then finds a
+//    class's earlier voters by a scan instead of marks).
 // 3. Lanes count bins by ballot into the block's histogram (shared-memory
 //    integer atomics); each block adds its histogram into rank 0's
 //    (distributed shared-memory integer atomics) and warp 0 of rank 0 does
@@ -83,11 +90,11 @@ namespace cg = cooperative_groups;
 constexpr int kSlots = 128;            // histogram slots of the L <= 32 kernels
 constexpr int kLowSlots = 64;          // H of the L <= 32 kernels
 constexpr int kRegArms = 32;           // the L <= 32 kernels: a 32-bit arm bitmask
-constexpr int kMaxArms = 1024;         // the wide kernel: its staging fits 1-8 warps
-constexpr int kMaxClasses = 32767;     // the wide kernel stages class ids as int16
+constexpr int kShortClasses = 32767;   // past it the wide kernel stages class ids as int32
 constexpr int kMaxCluster = 16;        // the non-portable limit on Hopper
 constexpr int kWideWarps = 8;          // the wide kernel's most warps a block
 constexpr int kWideStageBytes = 128 * 1024;   // its staging's most bytes a block
+constexpr int kGridYZ = 65535;         // the most blocks along grid y and z
 // The most threads a block has: 1024 for L <= 12 (<= 64 registers a thread),
 // 512 for L <= 16, 256 for L <= 32. A launch sizes its blocks to the draws:
 // ceil(T / cluster) threads, whole warps, up to that cap.
@@ -289,11 +296,38 @@ __global__ void __launch_bounds__(max_threads(LMAX)) mc_tie_hist_kernel(
 // L > 32: the wide kernel
 // ---------------------------------------------------------------------------
 
-// Bin of one valid draw from its staged column `col` (col[32 i], i < n: the
-// class of the i-th masked arm in ascending arm order, -1 for no vote) and
-// the masked arms' log weights `wm`, class by class: for each class k the
-// chain over its voters in ascending arm order from 0.0f.
-__device__ __forceinline__ int bin_by_class(const short* col, int n, const float* wm, float e,
+// A lane's column: col[i], i < n, is the class of the i-th masked arm of the
+// lane's draw in ascending arm order, -1 for no vote.
+// Staged in shared memory (the lane's ids 32 apart); marks may be written.
+template <typename Id>
+struct StagedCol {
+  static constexpr bool kMarks = true;
+  using Mark = Id;                     // a mark is stored as an id
+  Id* p;
+  // the Id itself, not an int: at int16 the loops then compile to the SASS
+  // of a plain short* column (the wide kernel's before int32 ids came)
+  __device__ __forceinline__ Id operator[](int i) const { return p[32 * i]; }
+  __device__ __forceinline__ void mark(int i, int m) { p[32 * i] = (Id)m; }
+};
+// Read straight from the draw's row of `resp`; nothing is written.
+struct GlobalCol {
+  static constexpr bool kMarks = false;
+  using Mark = int;
+  const int* row;                      // the draw's L class ids
+  const int* idx;                      // the masked arms' indices
+  int K;
+  __device__ __forceinline__ int operator[](int i) const {
+    const int r = __ldg(row + idx[i]);
+    return (unsigned)r < (unsigned)K ? r : -1;
+  }
+  __device__ __forceinline__ void mark(int, int) {}
+};
+
+// Bin of one valid draw from its column `col` and the masked arms' log
+// weights `wm`, class by class: for each class k the chain over its voters
+// in ascending arm order from 0.0f.
+template <typename Col>
+__device__ __forceinline__ int bin_by_class(const Col& col, int n, const float* wm, float e,
                                             int K) {
   float mx = -INFINITY;
   float d0 = e;
@@ -302,7 +336,7 @@ __device__ __forceinline__ int bin_by_class(const short* col, int n, const float
     float sum = 0.0f;
     bool hit = false;
     for (int i = 0; i < n; ++i) {
-      if (col[32 * i] == k) {
+      if (col[i] == k) {
         sum = sum + wm[i];
         hit = true;
       }
@@ -321,7 +355,7 @@ __device__ __forceinline__ int bin_by_class(const short* col, int n, const float
     float sum = 0.0f;
     bool hit = false;
     for (int i = 0; i < n; ++i) {
-      if (col[32 * i] == k) {
+      if (col[i] == k) {
         sum = sum + wm[i];
         hit = true;
       }
@@ -331,26 +365,37 @@ __device__ __forceinline__ int bin_by_class(const short* col, int n, const float
   return d0 >= thr ? ties - 1 : -1;
 }
 
+// True if a voter before i in `col` voted `cls` (the columns without marks).
+template <typename Col>
+__device__ __forceinline__ bool voted_before(const Col& col, int i, int cls) {
+  for (int j = 0; j < i; ++j)
+    if (col[j] == cls) return true;
+  return false;
+}
+
 // The same bin, first voter by first voter: each class's chain begun at
-// its first voter i; the class's later voters are marked -(k + 2) as they
-// are added, so each arm is added once, and the tie pass takes the same
-// chains again from the marks. Each pass costs n steps per class that
-// voted. The column is the lane's own until the warp stages again.
-__device__ __forceinline__ int bin_by_first_voter(short* col, int n, const float* wm, float e,
+// its first voter i. In a staged column the class's later voters are
+// marked -(k + 2) as they are added, so each arm is added once, and the tie
+// pass takes the same chains again from the marks; each pass costs n steps
+// per class that voted. The column is the lane's own until the warp stages
+// again. A column without marks finds a voter's earlier voters by a scan.
+template <typename Col>
+__device__ __forceinline__ int bin_by_first_voter(Col& col, int n, const float* wm, float e,
                                                   int K) {
   float mx = -INFINITY;
   float d0 = e;
   int voted = 0;
   for (int i = 0; i < n; ++i) {
-    const int cls = col[32 * i];
+    const int cls = col[i];
     if (cls < 0) continue;             // no vote, or a later voter of its class
-    const short mark = (short)(-cls - 2);
+    if (!Col::kMarks && voted_before(col, i, cls)) continue;
+    const typename Col::Mark mark = (typename Col::Mark)(-cls - 2);
     float sum = 0.0f;
     sum = sum + wm[i];
     for (int j = i + 1; j < n; ++j) {
-      if (col[32 * j] == cls) {
+      if (col[j] == cls) {
         sum = sum + wm[j];
-        col[32 * j] = mark;
+        col.mark(j, mark);
       }
     }
     ++voted;
@@ -362,13 +407,14 @@ __device__ __forceinline__ int bin_by_first_voter(short* col, int n, const float
   const float thr = mx - kTieTol;
   int ties = empty_shown && e >= thr ? K - voted : 0;
   for (int i = 0; i < n; ++i) {        // the first voters' chains again, against thr
-    const int cls = col[32 * i];
+    const int cls = col[i];
     if (cls < 0) continue;
-    const short mark = (short)(-cls - 2);
+    if (!Col::kMarks && voted_before(col, i, cls)) continue;
+    const typename Col::Mark mark = (typename Col::Mark)(-cls - 2);
     float sum = 0.0f;
     sum = sum + wm[i];
-    for (int j = i + 1; j < n; ++j)
-      if (col[32 * j] == mark) sum = sum + wm[j];
+    for (int j = i + 1; j < n; ++j)   // later voters read as the mark, unmarked as cls
+      if (col[j] == (Col::kMarks ? (int)mark : cls)) sum = sum + wm[j];
     ties += sum >= thr ? 1 : 0;
   }
   return d0 >= thr ? ties - 1 : -1;
@@ -381,13 +427,14 @@ __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t
 //   wm[L]  float    the masked arms' log weights, ascending arm order
 //   idx[L] int      the masked arms' indices
 //   hist[S], total[S] unsigned  the block's histogram; rank 0's: the cluster's
-//   stage[warps][L][32] int16   each warp's 32 draws' masked class ids
+//   stage[warps][L][32] Id      each warp's 32 draws' masked class ids
+//                               (id_bytes = sizeof(Id); 0 without staging)
 struct WideLayout {
   int S;
   size_t wm, idx, hist, total, stage, bytes;
 };
 
-__host__ __device__ inline WideLayout wide_layout(int L, int K, int warps) {
+__host__ __device__ inline WideLayout wide_layout(int L, int K, int warps, int id_bytes) {
   WideLayout s;
   const int H = L + 1;
   s.S = K < 2 * H ? K : 2 * H;
@@ -396,18 +443,26 @@ __host__ __device__ inline WideLayout wide_layout(int L, int K, int warps) {
   s.hist = s.idx + align16(sizeof(int) * L);
   s.total = s.hist + align16(sizeof(unsigned) * s.S);
   s.stage = s.total + align16(sizeof(unsigned) * s.S);
-  s.bytes = s.stage + sizeof(short) * (size_t)warps * L * 32;
+  s.bytes = s.stage + (size_t)id_bytes * warps * L * 32;
   return s;
 }
 
+// Does one warp's staging of L ids of id_bytes fit kWideStageBytes?
+__host__ __device__ inline bool wide_staged(int L, int id_bytes) {
+  return (long long)L * 32 * id_bytes <= kWideStageBytes;
+}
+
 // The wide kernel's most warps a block at L arms: up to 8, as many as
-// kWideStageBytes of staging hold.
-__host__ __device__ inline int wide_warps(int L) {
-  const int w = kWideStageBytes / (L * 32 * (int)sizeof(short));
+// kWideStageBytes of staging hold (8 without staging).
+__host__ __device__ inline int wide_warps(int L, int id_bytes) {
+  if (!wide_staged(L, id_bytes)) return kWideWarps;
+  const int w = kWideStageBytes / (L * 32 * id_bytes);
   return w < 1 ? 1 : w > kWideWarps ? kWideWarps : w;
 }
 
 // grid (cluster, C, G), cluster (cluster, 1, 1): one cluster per (g, c).
+// Id: the staged class ids' type; STAGED: stage them (else read `resp`).
+template <typename Id, bool STAGED>
 __global__ void __launch_bounds__(kWideWarps * 32) mc_tie_hist_wide_kernel(
     const int* __restrict__ resp, const float* __restrict__ masks, const float* __restrict__ w,
     const float* __restrict__ empty, const float* __restrict__ valid,
@@ -423,13 +478,13 @@ __global__ void __launch_bounds__(kWideWarps * 32) mc_tie_hist_wide_kernel(
   const int warp = threadIdx.x / 32;
   const int threads = blockDim.x;      // whole warps
   const int warps = threads / 32;
-  const WideLayout lay = wide_layout(L, K, warps);
+  const WideLayout lay = wide_layout(L, K, warps, STAGED ? (int)sizeof(Id) : 0);
   unsigned* words = reinterpret_cast<unsigned*>(smem);
   float* wm = reinterpret_cast<float*>(smem + lay.wm);
   int* idx = reinterpret_cast<int*>(smem + lay.idx);
   unsigned* hist = reinterpret_cast<unsigned*>(smem + lay.hist);
   unsigned* total = reinterpret_cast<unsigned*>(smem + lay.total);
-  short* stage = reinterpret_cast<short*>(smem + lay.stage) + (size_t)warp * L * 32;
+  Id* stage = reinterpret_cast<Id*>(smem + lay.stage) + (size_t)warp * L * 32;
   const int S = lay.S;
   const int H = L + 1;
   const int fold = K - S;              // slot = bin - fold for bins >= H
@@ -470,22 +525,30 @@ __global__ void __launch_bounds__(kWideWarps * 32) mc_tie_hist_wide_kernel(
   for (int base = rank * threads; base < T; base += span * threads) {
     const int t0 = base + warp * 32;
     const int draws = T - t0;          // this warp's draws: min(32, draws)
-    for (int i = lane; i < n; i += 32) {   // lanes along the arms of each draw
-      const int* arm = rg + (long long)t0 * L + idx[i];
-      int r[32];
+    if (STAGED) {
+      for (int i = lane; i < n; i += 32) {   // lanes along the arms of each draw
+        const int* arm = rg + (long long)t0 * L + idx[i];
+        int r[32];
 #pragma unroll
-      for (int d = 0; d < 32; ++d) r[d] = d < draws ? __ldg(arm + (long long)d * L) : -1;
+        for (int d = 0; d < 32; ++d) r[d] = d < draws ? __ldg(arm + (long long)d * L) : -1;
 #pragma unroll
-      for (int d = 0; d < 32; ++d)
-        stage[32 * i + d] = (unsigned)r[d] < (unsigned)K ? (short)r[d] : (short)-1;
+        for (int d = 0; d < 32; ++d)
+          stage[32 * i + d] = (unsigned)r[d] < (unsigned)K ? (Id)r[d] : (Id)-1;
+      }
+      __syncwarp();
     }
-    __syncwarp();
     const int t = t0 + lane;
     const bool take = t < T && (!vg || vg[t] > 0.0f);
     int bin = -1;
-    if (take)
-      bin = by_class ? bin_by_class(stage + lane, n, wm, e, K)
-                     : bin_by_first_voter(stage + lane, n, wm, e, K);
+    if (take) {
+      if (STAGED) {
+        StagedCol<Id> col{stage + lane};
+        bin = by_class ? bin_by_class(col, n, wm, e, K) : bin_by_first_voter(col, n, wm, e, K);
+      } else {
+        GlobalCol col{rg + (long long)t * L, idx, K};
+        bin = by_class ? bin_by_class(col, n, wm, e, K) : bin_by_first_voter(col, n, wm, e, K);
+      }
+    }
     if (bin >= H) bin -= fold;
     unsigned pending = __ballot_sync(kFull, bin >= 0);
     while (pending) {                  // one round per distinct bin in the warp
@@ -603,50 +666,89 @@ cudaError_t launch_lmax(const int* resp, const float* masks, const float* w, con
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_wide(const int* resp, const float* masks, const float* w,
-                               const float* empty, const float* valid, const float* theta,
-                               float* out, int G, int C, int T, int L, int K, int cluster,
-                               cudaStream_t stream) {
+template <typename Id, bool STAGED>
+cudaError_t launch_wide(const int* resp, const float* masks, const float* w, const float* empty,
+                        const float* valid, const float* theta, float* out, int G, int C, int T,
+                        int L, int K, int cluster, cudaStream_t stream) {
   void (*kernel)(const int*, const float*, const float*, const float*, const float*,
                  const float*, float*, int, int, int, int, unsigned long long) =
-      mc_tie_hist_wide_kernel;
-  const int cap = wide_warps(L) * 32;
+      mc_tie_hist_wide_kernel<Id, STAGED>;
+  const int id_bytes = STAGED ? (int)sizeof(Id) : 0;
+  const int cap = wide_warps(L, (int)sizeof(Id)) * 32;
   // the shared memory of the most warps a block may have; the launch below
   // takes its own block's
-  const size_t most = wide_layout(L, K, cap / 32).bytes;
+  const size_t most = wide_layout(L, K, cap / 32, id_bytes).bytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
   if (err != cudaSuccess) return err;
   err = pick_cluster(kernel, G, C, T, cap, most, stream, &cluster);
   if (err != cudaSuccess) return err;
   Launch launch(cluster, G, C, T, cap, 0, stream);
-  launch.cfg.dynamicSmemBytes = wide_layout(L, K, launch.cfg.blockDim.x / 32).bytes;
+  launch.cfg.dynamicSmemBytes = wide_layout(L, K, launch.cfg.blockDim.x / 32, id_bytes).bytes;
   err = cudaLaunchKernelEx(&launch.cfg, kernel, resp, masks, w, empty, valid, theta, out, C, T,
                            L, K, lcm_below_2_24(K));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// One launch over G <= kGridYZ groups and C <= kGridYZ candidates, the
+// kernel chosen by explicit branches on L, K and the staging's size.
+inline cudaError_t launch_part(const int* r, const float* m, const float* wt, const float* e,
+                               const float* v, const float* th, float* o, int G, int C, int T,
+                               int L, int K, int cluster, cudaStream_t s) {
+  if (L > kRegArms) {
+    const bool int_ids = K > kShortClasses;
+    if (!wide_staged(L, int_ids ? 4 : 2))
+      return launch_wide<int, false>(r, m, wt, e, v, th, o, G, C, T, L, K, cluster, s);
+    if (int_ids) return launch_wide<int, true>(r, m, wt, e, v, th, o, G, C, T, L, K, cluster, s);
+    return launch_wide<short, true>(r, m, wt, e, v, th, o, G, C, T, L, K, cluster, s);
+  }
+  if (L <= 8) return launch_lmax<8>(r, m, wt, e, v, th, o, G, C, T, L, K, cluster, s);
+  if (L <= 12) return launch_lmax<12>(r, m, wt, e, v, th, o, G, C, T, L, K, cluster, s);
+  if (L <= 16) return launch_lmax<16>(r, m, wt, e, v, th, o, G, C, T, L, K, cluster, s);
+  return launch_lmax<32>(r, m, wt, e, v, th, o, G, C, T, L, K, cluster, s);
+}
+
 // Launch on `stream`; `valid` and `theta` may be null (every draw valid,
-// theta = T); `cluster` 0 picks the cluster size. Returns the launch's CUDA
-// error, cudaErrorInvalidValue for arguments outside the kernels' range.
+// theta = T); `cluster` 0 picks the cluster size. One launch where G and C
+// are at most kGridYZ (the grid's y and z limit); past it, launches in
+// chunks along G (C whole), or, where C passes it, one group and at most
+// kGridYZ candidates a launch, each at its pointers' offsets. Returns the
+// first failed launch's CUDA error, cudaErrorInvalidValue for arguments
+// outside the kernels' range.
 inline int tie_hist_launch(const void* resp, const void* masks, const void* w, const void* empty,
                            const void* valid, const void* theta, void* out, int G, int C, int T,
                            int L, int K, int cluster, void* stream) {
   if (G <= 0 || C <= 0) return 0;
-  if (K < 1 || K > kMaxClasses || L < 0 || L > kMaxArms || T < 0 || C > 65535 || G > 65535 ||
-      cluster < 0 || cluster > kMaxCluster)
+  if (K < 1 || L < 0 || T < 0 || cluster < 0 || cluster > kMaxCluster)
     return (int)cudaErrorInvalidValue;
   const int* r = (const int*)resp;
   const float *m = (const float*)masks, *wt = (const float*)w, *e = (const float*)empty;
   const float *v = (const float*)valid, *th = (const float*)theta;
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  if (L > kRegArms) return (int)launch_wide(r, m, wt, e, v, th, o, G, C, T, L, K, cluster, s);
-  if (L <= 8) return (int)launch_lmax<8>(r, m, wt, e, v, th, o, G, C, T, L, K, cluster, s);
-  if (L <= 12) return (int)launch_lmax<12>(r, m, wt, e, v, th, o, G, C, T, L, K, cluster, s);
-  if (L <= 16) return (int)launch_lmax<16>(r, m, wt, e, v, th, o, G, C, T, L, K, cluster, s);
-  return (int)launch_lmax<32>(r, m, wt, e, v, th, o, G, C, T, L, K, cluster, s);
+  if (C <= kGridYZ) {
+    for (int g0 = 0; g0 < G; g0 += kGridYZ) {
+      const int n = G - g0 < kGridYZ ? G - g0 : kGridYZ;
+      const cudaError_t err = launch_part(
+          r + (long long)g0 * T * L, m + (long long)g0 * C * L, wt + (long long)g0 * L, e + g0,
+          v ? v + (long long)g0 * T : nullptr, th ? th + g0 : nullptr, o + (long long)g0 * C, n,
+          C, T, L, K, cluster, s);
+      if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
+  }
+  for (int g = 0; g < G; ++g) {
+    for (int c0 = 0; c0 < C; c0 += kGridYZ) {
+      const int n = C - c0 < kGridYZ ? C - c0 : kGridYZ;
+      const cudaError_t err = launch_part(
+          r + (long long)g * T * L, m + ((long long)g * C + c0) * L, wt + (long long)g * L, e + g,
+          v ? v + (long long)g * T : nullptr, th ? th + g : nullptr, o + (long long)g * C + c0,
+          1, n, T, L, K, cluster, s);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  return 0;
 }
 
 }  // namespace mc

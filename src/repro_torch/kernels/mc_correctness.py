@@ -49,14 +49,20 @@ Design (one launch each, bitwise their plain versions):
 * L > 32 arms — the wide kernel, chosen by an explicit branch on L: the
   mask is a multi-word bitmask in shared memory (one ballot per 32 arms)
   and a list of the masked arms in ascending order; each warp stages its
-  32 draws' masked class ids in shared memory as int16 and each lane
-  works out one draw over the masked arms only, in the same add order:
+  32 draws' masked class ids in shared memory (int16 where K <= 32767,
+  int32 past it, by an explicit branch on K) and each lane works out one
+  draw over the masked arms only, in the same add order:
   class by class where K <= n (2 K n steps, the same for every lane), else
   from each class's first voter on, marking the class's later voters as
   it adds them (at most 2 n min(K, n) steps, each lane its own);
   ``python -m repro_torch.kernels.mc_study --wide`` times both.
   Blocks of up to 256 threads, fewer where the staging of L arms would
-  pass 128 KB.
+  pass 128 KB. Where even one warp's staging would pass 128 KB (L > 2048
+  arms with int16 ids, L > 1024 with int32), an explicit branch on L and
+  the id width launches the kernel without staging: each lane reads its
+  column of class ids straight from ``responses`` through the same two
+  loops, finding a class's earlier voters by a scan (simple and right;
+  not tuned).
 * Integer tie histograms: a draw falls in bin ``ties - 1`` where class 0
   attains the max. A bin lies below n or at least K - n - 1 (only the
   empty belief's tie reaches past n), so K bins fold into min(K, 2H)
@@ -69,10 +75,13 @@ Design (one launch each, bitwise their plain versions):
   others add 0.0), one rounding to f32. No scratch tensor, no second
   launch.
 
-Sizes: any L <= 1024 arms (the wide kernel's staging of L int16 class ids
-a lane fits one warp at most) and any K <= 32767 classes (int16 class
-ids). The wrappers refuse larger sizes, with the reason, before the
-kernels are built.
+Sizes: G and C past 65535 (the grid's y and z limit) launch in chunks
+along that axis at the pointers' offsets, one launch a chunk; below it a
+call is one launch. What a block must still hold in shared memory is the
+masked-arm list and 2 min(K, 2 L + 2) histogram slots, within the 227 KB
+a block may opt into: about 9,600 arms at any K, and far more where K is
+small. The wrappers refuse only a size past that, with the reason, before
+the kernels are built.
 """
 from __future__ import annotations
 
@@ -80,10 +89,13 @@ import torch
 
 from . import _build
 
-# kMaxClasses / kMaxArms in csrc/mc_tie_hist.cuh: the wide kernel stages
-# class ids as int16, and the staging of L of them a lane fits one warp
-MAX_CLASSES = 32767
-MAX_ARMS = 1024
+# kShortClasses, kWideStageBytes and kWideWarps in csrc/mc_tie_hist.cuh: the
+# wide kernel's staged id width, its staging's most bytes a block and its
+# most warps a block; a block's opt-in shared memory on an H100
+SHORT_CLASSES = 32767
+WIDE_STAGE_BYTES = 128 * 1024
+WIDE_WARPS = 8
+MAX_SHARED_BYTES = 227 * 1024
 # the entry points' cluster argument: 0 lets the launch pick 16 blocks where
 # all G * C clusters of 16 fit on the card at once, else 8 (the study
 # `python -m repro_torch.kernels.mc_study` also times 8 and 16 forced)
@@ -98,13 +110,31 @@ def _check(name, t, dtype, shape, dev) -> None:
         )
 
 
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def wide_shared_bytes(L: int, K: int) -> int:
+    """Dynamic shared memory of the wide kernel's largest block at L arms
+    and K classes (``wide_layout`` in ``csrc/mc_tie_hist.cuh``)."""
+    id_bytes = 4 if K > SHORT_CLASSES else 2
+    if L * 32 * id_bytes <= WIDE_STAGE_BYTES:
+        warps = min(WIDE_WARPS, max(1, WIDE_STAGE_BYTES // (L * 32 * id_bytes)))
+    else:                              # no staging: each lane reads `responses`
+        warps, id_bytes = WIDE_WARPS, 0
+    S = min(K, 2 * (L + 1))
+    return (_align16(4 * ((L + 31) // 32)) + 2 * _align16(4 * L) + _align16(4 * S) + 4 * S
+            + id_bytes * warps * L * 32)
+
+
 def _check_sizes(kernel: str, K: int, L: int) -> None:
-    if not 1 <= K <= MAX_CLASSES:
-        raise ValueError(f"{kernel} takes 1 <= K <= {MAX_CLASSES} classes (class ids are "
-                         f"staged as int16), got {K}")
-    if L > MAX_ARMS:
-        raise ValueError(f"{kernel} takes L <= {MAX_ARMS} arms (a lane's L staged class ids "
-                         f"must fit one warp's shared memory), got {L}")
+    if K < 1:
+        raise ValueError(f"{kernel} takes 1 <= K classes, got {K}")
+    if L > 32 and wide_shared_bytes(L, K) > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{kernel}: L={L} arms and K={K} classes need {wide_shared_bytes(L, K)} bytes of "
+            f"shared memory a block (the masked-arm list and histogram slots), past the "
+            f"{MAX_SHARED_BYTES} a block may hold")
 
 
 def _run(kernel: str, dev, *args) -> None:
@@ -127,8 +157,8 @@ def launch(responses, masks, log_weights, empty, num_classes: int) -> torch.Tens
     dev = responses.device
     K = int(num_classes)
     _check_sizes("mc_correctness", K, L)
-    if T < 1 or C > 65535:
-        raise ValueError(f"mc_correctness takes T >= 1 draws and C <= 65535 masks, got T={T} C={C}")
+    if T < 1:
+        raise ValueError(f"mc_correctness takes T >= 1 draws, got T={T}")
     for name, t, dtype, shape in (
         ("responses", responses, torch.int32, (T, L)),
         ("masks", masks, torch.float32, (C, L)),
@@ -155,8 +185,6 @@ def launch_grouped(responses, masks, log_weights, empty, valid, theta,
     dev = responses.device
     K = int(num_classes)
     _check_sizes("mc_correctness_grouped", K, L)
-    if G > 65535 or C > 65535:
-        raise ValueError(f"mc_correctness_grouped takes G, C <= 65535, got G={G} C={C}")
     for name, t, dtype, shape in (
         ("responses", responses, torch.int32, (G, T, L)),
         ("masks", masks, torch.float32, (G, C, L)),

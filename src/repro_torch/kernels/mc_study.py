@@ -36,6 +36,10 @@ libraries built from this tree's sources and from those of the checkout
 DIR (another commit, unpacked), each launched at its path shape at the
 launch's own cluster size, the two timed in turns; device ms per call of
 each side in each round, and whether the two sides' outputs are equal.
+Per library also each side's ``-Xptxas -v`` register lines and, for each
+of DIR's kernels, the kernel of this tree whose SASS (``cuobjdump
+-sass``, addresses and encodings dropped) is the same instruction for
+instruction, or null.
 
 Device time comes from ``torch.profiler`` kernel rows of traces that
 bracket the timed calls with spin kernels after a pause: a trace of bare
@@ -373,12 +377,58 @@ def run_wide(dev) -> dict:
 
 def build_from(csrc: Path, name: str, workdir: Path) -> Path:
     """Kernel ``name``'s library built from the sources in ``csrc`` with the
-    port's flags into ``workdir``."""
+    port's flags (and ``-Xptxas -v``, its lines kept in ``registers.txt``
+    beside it) into ``workdir``."""
     workdir.mkdir(parents=True, exist_ok=True)
     so = workdir / f"{name}.so"
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
-                    str(csrc / f"{name}.cu")], check=True, capture_output=True, text=True)
+    log = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so),
+                          str(csrc / f"{name}.cu")], check=True, capture_output=True, text=True)
+    (workdir / f"{name}.registers.txt").write_text("\n".join(
+        line.strip() for line in (log.stdout + log.stderr).splitlines() if "registers" in line))
     return so
+
+
+def sass_by_kernel(so: Path) -> dict:
+    """Demangled kernel name -> its SASS instructions (``cuobjdump -sass``),
+    addresses, encodings and immediate values' hex left out."""
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+                         check=True).stdout
+    fns, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fns[fn] = []
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            op = line.split("*/", 1)[1].split("/*")[0].strip()
+            fns[fn].append(re.sub(r"0x[0-9a-f]+", "#", op))
+    names = subprocess.run(["c++filt"], input="\n".join(fns), capture_output=True,
+                           text=True).stdout.split("\n")
+    return {name: fns[m] for name, m in zip(names, fns)}
+
+
+def sass_matches(other: Path, mine: Path) -> dict:
+    """For each kernel of library ``other``, the kernel of ``mine`` with the
+    same SASS instruction for instruction; where there is none, the closest
+    one (``difflib`` ratio of the instruction lists) with both instruction
+    counts and the instructions that differ."""
+    import difflib
+
+    theirs, ours = sass_by_kernel(other), sass_by_kernel(mine)
+    out = {}
+    for name, want in theirs.items():
+        same = next((m for m, ops in ours.items() if ops == want), None)
+        if same is not None:
+            out[name] = {"same_as": same}
+            continue
+        ratios = {m: difflib.SequenceMatcher(None, want, ops, autojunk=False).ratio()
+                  for m, ops in ours.items()}
+        m = max(ratios, key=ratios.get)
+        diff = [d for d in difflib.unified_diff(want, ours[m], lineterm="", n=0)
+                if d[:1] in "+-" and not d.startswith(("+++", "---"))]
+        out[name] = {"same_as": None, "closest": m, "ratio": ratios[m],
+                     "instructions": [len(want), len(ours[m])], "differing": diff[:40]}
+    return out
 
 
 def run_against(dev, other: Path, rounds: int = 3) -> dict:
@@ -421,6 +471,10 @@ def run_against(dev, other: Path, rounds: int = 3) -> dict:
             mine, theirs = calls["this", name](), calls["other", name]()
             row = {"equal": all(torch.equal(a, b) for a, b in zip(mine, theirs)),
                    "other_ms": [], "this_ms": []}
+            for side in ("other", "this"):
+                row[f"{side}_registers"] = (Path(tmp) / side / f"{name}.registers.txt").read_text()
+            row["same_sass"] = sass_matches(Path(tmp) / "other" / f"{name}.so",
+                                            Path(tmp) / "this" / f"{name}.so")
             for _ in range(rounds):
                 for side in ("other", "this"):
                     row[f"{side}_ms"].append(device_ms(calls[side, name]))

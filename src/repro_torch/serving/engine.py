@@ -12,17 +12,18 @@ simulated latency. Two arm families:
     drawing from numpy generators exactly as the reference does, so both
     packages answer the same queries identically.
 
-The fault plane waits for a later slice: :meth:`PoolEngine.fault_grid`
-always reports a fault-free grid.
+An optional :class:`~repro_torch.distributed.fault.FaultPolicy` injects
+arm faults; :meth:`PoolEngine.fault_grid` evaluates it on the host.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.fault import FAULT_ERROR, FAULT_TIMEOUT
 from repro_torch.models import LM
 
 USD_PER_FLOP = 3.5e-18          # calibrated so pool prices match Table 4's range
@@ -108,6 +109,10 @@ class PoolEngine:
     """
 
     arms: List[Any]
+    # Optional arm-level fault injection (see repro_torch.distributed.fault):
+    # draws are evaluated on the host on the original wave schedule. None /
+    # inactive policies cost nothing.
+    fault_policy: Optional[Any] = None
 
     def __post_init__(self):
         self._workload = None
@@ -139,6 +144,10 @@ class PoolEngine:
         )
 
     @property
+    def any_metered(self) -> bool:
+        return bool(self.metered_mask.any())
+
+    @property
     def pooled(self) -> bool:
         """True when every arm shares one oracle workload, enabling the
         single-call heterogeneous fast paths (``invoke_rows`` pooled draw,
@@ -146,9 +155,20 @@ class PoolEngine:
         return self._workload is not None
 
     def fault_grid(self, sched_T: np.ndarray, row_offset: int = 0):
-        """(codes, failed) for a wave schedule: always ``(None, None)`` — no
-        fault policy exists in this slice of the port."""
-        return None, None
+        """(codes, failed) for a wave schedule, or (None, None) when no
+        active fault policy is attached. ``codes`` is the (T, B) int8 fault
+        grid (see FAULT_* in repro_torch.distributed.fault); ``failed``
+        marks cells whose arm produced no usable response (timeout or error
+        — silently-degraded cells still answer, just wrongly).
+
+        ``row_offset`` positions this schedule's rows inside a logically
+        fused batch so per-worker draws match the fused dispatch cell for
+        cell."""
+        policy = self.fault_policy
+        if policy is None or not policy.active:
+            return None, None
+        codes = policy.grid_codes(sched_T, row_offset=row_offset)
+        return codes, (codes == FAULT_TIMEOUT) | (codes == FAULT_ERROR)
 
     def fingerprint(self) -> bytes:
         """Digest of the pool's pricing identity. The PlanService folds this

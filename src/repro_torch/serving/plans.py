@@ -1,6 +1,6 @@
 """Plan-cache selection service: "plan once, route many" (host numpy; the
-PyTorch port's copy of ``repro/serving/plans.py``, without the compile
-cache, which has no counterpart in an eagerly run port).
+PyTorch port's copy of ``repro/serving/plans.py``; the compile cache it
+warms in the reference has no counterpart in an eagerly run port).
 
 Selection (SurGreedyLLM) is by far the most expensive step of routing a
 query class — a Monte-Carlo greedy over the pool — yet its output depends
@@ -23,10 +23,20 @@ never serve again because no lookup ever constructs their key — and
 reduced to a cheap version/cost compare: on an estimate change it only
 counts the invalidation and prunes the dead entries; on a cost change it
 drops everything and re-snapshots the new cost vector into the selector.
+Online feedback (``serving/feedback.py``) bumps cluster versions only for
+clusters whose estimates actually drifted, so feedback that confirms
+current estimates keeps every cache hot.
+
+Hot-pair precomputation: the service counts how often each (cluster,
+budget) pair is planned; :meth:`prewarm` builds plans ahead of traffic for
+an explicit list of pairs or for the hottest pairs seen so far, so a
+serving replica can warm its cache before taking load (or after an
+invalidation) without paying selection latency on user queries.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -123,29 +133,37 @@ class PlanService:
     batches (and shareable across routers bound to the same pool). All
     methods are cheap except a miss, which runs SurGreedy selection.
 
-    Misses of several pairs are **batched**: :meth:`plan_many` (and through
-    it :meth:`batch_tables`) funnels its missing (cluster, budget) pairs into
+    Misses are **batched**: every multi-pair entry point (:meth:`plan_many`,
+    :meth:`batch_tables`, :meth:`prewarm`, :meth:`prefetch_for`,
+    :meth:`replan_stale`) funnels its missing (cluster, budget) pairs into
     one :meth:`~repro_torch.core.selection.ThriftLLM.select_many` call, so a
-    cold batch table costs one batched-planner call instead of a serial
-    selection per pair; a single miss takes the serial planner. Both give
-    bit-identical plans under the planner's shared-CRN contract.
-
-    The reference's scheduler-facing entry points (``prewarm``,
-    ``prefetch_for``, ``replan_stale``, ``hot_pairs``, ``known_budgets``) and
-    its ``batched=False`` benchmark baseline wait for the scheduler slice.
+    cache-miss storm — a cold replica warming up, a drift fold invalidating
+    many clusters at once — costs one batched-planner dispatch instead of a
+    serial selection per pair. ``batched=False`` pins the serial per-pair
+    path (the benchmark baseline); both produce bit-identical plans under
+    the planner's shared-CRN contract.
     """
 
-    def __init__(self, selector, estimator, engine, num_classes: int):
+    def __init__(self, selector, estimator, engine, num_classes: int,
+                 batched: bool = True):
         self.selector = selector
         self.estimator = estimator
         self.engine = engine
         self.num_classes = int(num_classes)
+        self.batched = bool(batched)
         self._cache: Dict[PlanKey, GroupPlan] = {}
         self._table_cache: Dict[Tuple[float, bytes, int], BatchTables] = {}
+        self._pair_counts: Counter = Counter()
+        # (cluster, budget) pairs whose plans the stale-prune dropped —
+        # the batched drift-replan's work list (see replan_stale)
+        self._replan_pairs: set = set()
         self.hits = 0
         self.misses = 0
         self.invalidations = 0
+        self.prefetches = 0
         self.stale_dropped = 0
+        self.batch_replans = 0
+        self.batch_replanned = 0
         self._cost_fp = self.engine.fingerprint()
         self._plan_version = self._estimator_version()
 
@@ -154,10 +172,11 @@ class PlanService:
     # ------------------------------------------------------------------
     def _estimator_version(self) -> int:
         """The estimator's global plan version — bumped whenever any
-        cluster's estimate changes in a plan-visible way (an ``update``
-        or ``touch`` call). Batch-table keys carry it; per-pair plan keys
-        carry the finer per-cluster version. NOTE: assigning ``p_hat``
-        directly bypasses the version machinery — follow such edits with
+        cluster's estimate changes in a plan-visible way (a direct
+        ``update`` call, or drifting feedback; confirming feedback leaves
+        it put). Batch-table keys carry it; per-pair plan keys carry the
+        finer per-cluster version. NOTE: assigning ``p_hat`` directly
+        bypasses the version machinery — follow such edits with
         ``estimator.touch(cid)`` or the caches cannot see them."""
         return int(getattr(self.estimator, "plan_version", 0))
 
@@ -171,10 +190,10 @@ class PlanService:
         Invalidation is **lazy** for estimate changes: plan and table keys
         carry estimator versions, so a stale entry can never serve even if
         refresh is never called — this method just counts the invalidation
-        and prunes the dead entries so the cache doesn't grow unboundedly.
-        A *cost* change (re-priced or swapped arms) is handled eagerly
-        because the selector's internal cost snapshot must be re-pulled
-        from the engine before the next build.
+        and prunes the dead entries so the cache doesn't grow unboundedly
+        under continuous feedback. A *cost* change (re-priced or swapped
+        arms) is handled eagerly because the selector's internal cost
+        snapshot must be re-pulled from the engine before the next build.
         """
         cost_fp = self.engine.fingerprint()
         plan_version = self._estimator_version()
@@ -183,6 +202,8 @@ class PlanService:
         if cost_fp != self._cost_fp:
             self._cache.clear()
             self._table_cache.clear()
+            self._pair_counts.clear()
+            self._replan_pairs.clear()   # re-priced pool: nothing to rebuild
             self.selector.rebind_costs(self.engine.costs)
             self._cost_fp = cost_fp
         else:
@@ -194,10 +215,16 @@ class PlanService:
     def _prune_stale(self) -> int:
         """Drop cache entries whose version/cost key no longer matches the
         live pool (they can never be looked up again). Returns plans
-        dropped; accumulated in ``stale_dropped``."""
+        dropped; accumulated in ``stale_dropped`` — the replan counter the
+        serving stats expose, since every pruned plan is one the feedback
+        loop forced a re-selection of."""
         live = [k for k in self._cache if k == self._plan_key(k[0], k[1])]
         dropped = len(self._cache) - len(live)
         if dropped:
+            live_set = set(live)
+            self._replan_pairs.update(
+                (k[0], k[1]) for k in self._cache if k not in live_set
+            )
             self._cache = {k: self._cache[k] for k in live}
         version = self._estimator_version()
         self._table_cache = {
@@ -205,8 +232,8 @@ class PlanService:
             if k[1] == self._cost_fp and k[2] == version
         }
         # the selector memoizes on p-vector bytes: entries for dead
-        # estimates can never hit again, so bound them too or repeated
-        # re-estimation grows the memo forever (oldest-first, live plans stay)
+        # estimates can never hit again, so bound them too or continuous
+        # drift grows the memo forever (oldest-first, live plans stay)
         self.selector.trim_cache(max(128, 4 * len(self._cache)))
         self.stale_dropped += dropped
         return dropped
@@ -224,25 +251,30 @@ class PlanService:
         """Return the wave plan for (cluster ``cid``, ``budget``), building
         and caching it on first use."""
         key = self._plan_key(cid, budget)
+        self._pair_counts[key[:2]] += 1
         plan = self._cache.get(key)
         if plan is not None:
             self.hits += 1
             return plan
         self.misses += 1
-        plan = self._build_many([(int(cid), float(budget))])[0]
+        plan = self._build(int(cid), float(budget))
         self._cache[key] = plan
         return plan
 
     def plan_many(self, pairs: Iterable[Tuple[int, float]]) -> List[GroupPlan]:
         """Wave plans for many (cluster, budget) pairs; one batched
-        selection call covers every miss.
+        selection dispatch covers every miss.
 
         The multi-pair mirror of :meth:`plan` (same hit/miss accounting,
         same cache): cached pairs gather for free, the missing ones are
-        selected together through the batched planner. Returns plans
-        aligned with ``pairs``.
+        selected together through the batched planner. This is the
+        cache-miss-storm entry point — a cold batch table, a prewarm, a
+        drift replan of many clusters — turning O(misses) serial SurGreedy
+        runs into one device program. Returns plans aligned with ``pairs``.
         """
         pairs = [(int(c), float(bg)) for c, bg in pairs]
+        for pr in pairs:
+            self._pair_counts[pr] += 1
         missing = [
             pr for pr in dict.fromkeys(pairs)
             if self._plan_key(*pr) not in self._cache
@@ -253,27 +285,39 @@ class PlanService:
             self._cache[self._plan_key(*pr)] = plan
         return [self._cache[self._plan_key(*pr)] for pr in pairs]
 
+    def _build(self, cid: int, budget: float) -> GroupPlan:
+        return self._build_many([(int(cid), float(budget))])[0]
+
     def _build_many(
         self, pairs: Sequence[Tuple[int, float]]
     ) -> List[GroupPlan]:
-        """Run selection for ``pairs`` and derive their wave plans: one
-        ``selector.select_many`` call (the batched planner) for several
-        pairs, the serial ``selector.select`` for one. Does not touch the
-        cache or the hit/miss counters — callers decide how builds are
-        accounted.
+        """Run selection for ``pairs`` and derive their wave plans.
+
+        With ``batched`` (default) every pair rides one
+        ``selector.select_many`` call — one batched greedy program over
+        the stacked (cluster, budget) groups; ``batched=False`` keeps the
+        serial per-pair path (bit-identical results, used as the benchmark
+        baseline). Does not touch the cache or the hit/miss counters —
+        callers decide how builds are accounted.
         """
         if not pairs:
             return []
         K = self.num_classes
-        if len(pairs) > 1:
+        # the batched program only pays off with groups to share; a single
+        # pair takes the serial path (bit-identical under the CRN contract)
+        if self.batched and len(pairs) > 1:
             ps = np.stack(
                 [self.estimator.clusters[c].p_hat for c, _ in pairs]
             )
             budgets = np.asarray([bg for _, bg in pairs], np.float64)
             sels = self.selector.select_many(ps, K, budgets)
         else:
-            (c, bg), = pairs
-            sels = [self.selector.select(self.estimator.clusters[c].p_hat, K, bg)]
+            sels = [
+                self.selector.select(
+                    self.estimator.clusters[c].p_hat, K, bg
+                )
+                for c, bg in pairs
+            ]
         return [
             self._derive(self.estimator.clusters[c].p_hat, sel)
             for (c, _), sel in zip(pairs, sels)
@@ -300,6 +344,38 @@ class PlanService:
             planned=float(wave_costs.sum()) if order.size else 0.0,
         )
 
+    def replan_stale(self, clusters: Optional[Iterable[int]] = None) -> int:
+        """Rebuild, as one batched dispatch, every plan the stale-prunes
+        dropped — the drift-replan fast path.
+
+        The scheduler calls this at the admission boundary right after a
+        drifting feedback fold: :meth:`refresh` prunes the invalidated
+        entries (recording their (cluster, budget) pairs), then all of them
+        re-select through one :meth:`_build_many` call, so a fold that
+        drifts G clusters costs one batched-planner dispatch instead of G
+        cold selections on the next batches. ``clusters`` optionally
+        restricts the rebuild; unrestricted pairs stay queued. Returns the
+        number of plans rebuilt (also accumulated in ``batch_replanned``).
+        """
+        self.refresh()
+        pending = sorted(self._replan_pairs)
+        if clusters is not None:
+            want = {int(c) for c in clusters}
+            pending = [pr for pr in pending if pr[0] in want]
+        self._replan_pairs.difference_update(pending)
+        build = [
+            pr for pr in pending
+            if pr[0] in self.estimator.clusters
+            and self._plan_key(*pr) not in self._cache
+        ]
+        if not build:
+            return 0
+        for pr, plan in zip(build, self._build_many(build)):
+            self._cache[self._plan_key(*pr)] = plan
+        self.batch_replans += 1
+        self.batch_replanned += len(build)
+        return len(build)
+
     def batch_tables(
         self, budget: float, idx: Optional[np.ndarray] = None
     ) -> BatchTables:
@@ -311,21 +387,23 @@ class PlanService:
         selector work, zero per-group Python. Invalidates with the pool
         fingerprint like every plan.
 
-        ``idx`` (optional (B,) dense cluster indices of the batch): a cache
-        hit counts one plan hit per cluster the batch actually contains
-        (every cluster without it)."""
+        ``idx`` (optional (B,) dense cluster indices of the batch) feeds
+        the traffic accounting: per-query (cluster, budget) counts keep
+        :meth:`hot_pairs` meaningful, and a cache hit counts one plan hit
+        per cluster the batch actually contains."""
         key = (float(budget), self._cost_fp, self._estimator_version())
         tables = self._table_cache.get(key)
         if tables is not None:
             if idx is None:
                 self.hits += tables.order.shape[1]
             else:
-                self.hits += int(np.unique(idx).size)
+                self.hits += self._note_traffic(tables, float(budget), idx)
             return tables
         cids = getattr(self.estimator, "cluster_order", None)
         if cids is None:
             cids = np.asarray(sorted(self.estimator.clusters))
-        # cold tables = one batched-planner call over every cluster
+        # cache-miss storm = one batched-planner dispatch (cold tables, or
+        # a drift fold that invalidated many clusters at once)
         plans = self.plan_many([(int(c), float(budget)) for c in cids])
         order, floats, empty, planned = stack_plans(plans)
         tables = BatchTables(
@@ -333,7 +411,103 @@ class PlanService:
             cluster_ids=np.asarray(cids, np.int64),
         )
         self._table_cache[key] = tables
+        if idx is not None:
+            self._note_traffic(tables, float(budget), idx)
         return tables
+
+    def _note_traffic(
+        self, tables: BatchTables, budget: float, idx: np.ndarray
+    ) -> int:
+        """Fold a batch's per-query (cluster, budget) counts into the
+        hot-pair tracker; returns how many distinct clusters the batch hit."""
+        counts = np.bincount(idx, minlength=tables.cluster_ids.size)
+        present = 0
+        for c, n in zip(tables.cluster_ids, counts):
+            if n:
+                self._pair_counts[(int(c), budget)] += int(n)
+                present += 1
+        return present
+
+    # ------------------------------------------------------------------
+    # Precomputation ahead of traffic
+    # ------------------------------------------------------------------
+    def hot_pairs(self, n: int = 16) -> List[Tuple[int, float]]:
+        """The ``n`` most frequently planned (cluster, budget) pairs."""
+        return [pair for pair, _ in self._pair_counts.most_common(n)]
+
+    def known_budgets(self) -> List[float]:
+        """Every budget observed in planned traffic, ascending — the
+        default downgrade ladder for cost-ledger admission (a downgraded
+        request lands on a budget that already has warm plans)."""
+        return sorted({float(b) for _, b in self._pair_counts})
+
+    def prewarm(
+        self,
+        pairs: Optional[Iterable[Tuple[int, float]]] = None,
+        budgets: Optional[Sequence[float]] = None,
+        top: int = 16,
+    ) -> int:
+        """Build plans ahead of traffic; returns the number of plans built.
+
+        Three modes:
+          * ``pairs`` given — plan exactly those (cluster, budget) pairs;
+          * ``budgets`` given — plan the cross product of every known
+            cluster with each budget (cold-start warmup);
+          * neither — re-plan the ``top`` hottest pairs observed so far
+            (post-invalidation warmup; the hot-pair snapshot is taken
+            *before* refreshing, so it survives a cost invalidation).
+        """
+        hot_before = self.hot_pairs(top) if pairs is None and budgets is None else None
+        self.refresh()
+        if pairs is None:
+            if budgets is not None:
+                pairs = [
+                    (int(c), float(b))
+                    for c in self.estimator.clusters
+                    for b in budgets
+                ]
+            else:
+                pairs = hot_before
+        build = [
+            pr for pr in dict.fromkeys(
+                (int(c), float(bg)) for c, bg in pairs
+            )
+            if pr[0] in self.estimator.clusters
+            and self._plan_key(*pr) not in self._cache
+        ]
+        for pr, plan in zip(build, self._build_many(build)):
+            self._cache[self._plan_key(*pr)] = plan
+        return len(build)
+
+    def prefetch_for(self, embeddings: np.ndarray, budgets: np.ndarray) -> int:
+        """Queue-composition plan prefetch: given the (embedding, budget)
+        columns of a *pending* request queue, map them to clusters and build
+        whatever (cluster, budget) plans the coming flush will need — plus
+        the stacked batch tables when the composition is uniform-budget (the
+        common serving case). Called by the scheduler while a batch is
+        accumulating, so SurGreedy selection latency is paid before the
+        flush deadline instead of on the routed batch. Returns the number
+        of plans built; counts them as prefetches, not misses.
+        """
+        self.refresh()
+        embeddings = np.asarray(embeddings, np.float64)
+        if embeddings.shape[0] == 0:
+            return 0
+        idx = self.estimator.lookup_batch_indices(embeddings)
+        cids = self.estimator.cluster_order[idx]
+        budgets = np.asarray(budgets, np.float64)
+        build = [
+            pr for pr in sorted(
+                {(int(c), float(b)) for c, b in zip(cids, budgets)}
+            )
+            if self._plan_key(*pr) not in self._cache
+        ]
+        for pr, plan in zip(build, self._build_many(build)):
+            self._cache[self._plan_key(*pr)] = plan
+        self.prefetches += len(build)
+        if (budgets == budgets[0]).all():
+            self.batch_tables(float(budgets[0]))
+        return len(build)
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, int]:
@@ -342,6 +516,9 @@ class PlanService:
             "plan_hits": self.hits,
             "plan_misses": self.misses,
             "plan_invalidations": self.invalidations,
+            "plan_prefetches": self.prefetches,
             "plan_cache_size": len(self._cache),
             "plan_stale_dropped": self.stale_dropped,
+            "plan_batch_replans": self.batch_replans,
+            "plan_batch_replanned": self.batch_replanned,
         }

@@ -1,7 +1,7 @@
 """ThriftLLM router: per-query-class selection + batched wavefront invocation.
 
-The PyTorch port of ``repro/serving/router.py``, fault-free. Serving
-pipeline per batch (Figure 1 of the paper, batched):
+The PyTorch port of ``repro/serving/router.py``. Serving pipeline per
+batch (Figure 1 of the paper, batched):
 
   1. map each query's embedding to its historical cluster -> p-hat vector;
   2. group queries by (cluster, budget); SurGreedyLLM selection per group is
@@ -27,10 +27,19 @@ pipeline per batch (Figure 1 of the paper, batched):
      STOP_MARGIN boundary may take one wave more or fewer than the float64
      path; everywhere else the two backends agree.
 
+With an active engine fault policy
+(:class:`~repro_torch.distributed.fault.FaultPolicy`) both planes read one
+host-side fault grid over the original schedule: failed cells yield no
+response, degraded cells answer a hash-drawn class, and with ``failover``
+a failed arm's wave slot re-routes to the plan's next available arm — on
+the device plane through the wave program's ``src``/``valid`` gather, on
+the reference plane by rewriting the plan tables up front. Routes report
+the *effective* (post-failover) schedule, plus the fault evidence.
+
 Differences from the reference: no ``jit``, compile buckets or donation
-(``donate_buffers`` and ``prewarm_compile`` have no counterpart), tensors
-on an explicit ``device``, and no fault plane yet — the wave program keeps
-its identity ``src``/``valid`` gather so failover can drop in.
+(``donate_buffers`` and ``prewarm_compile`` have no counterpart), and
+tensors on an explicit ``device``; the failover ``src`` is int64 (torch
+gathers take it).
 """
 from __future__ import annotations
 
@@ -42,6 +51,13 @@ import torch
 from repro_torch.core.belief import tie_break_argmax
 from repro_torch.core.estimation import SuccessProbEstimator
 from repro_torch.core.selection import STOP_MARGIN, ThriftLLM, adaptive_invoke
+from repro_torch.distributed.fault import (
+    FAULT_DEGRADE,
+    FAULT_ERROR,
+    FAULT_TIMEOUT,
+    failover_gather,
+    observed_faults,
+)
 from repro_torch.kernels import ops
 
 from .engine import PoolEngine
@@ -64,6 +80,19 @@ class RouteResult:
       arm_query_counts: (L,) number of queries each pool arm actually served.
       waves: number of waves the batch executed before every query stopped.
       beliefs: (B, K) float64 log-beliefs each prediction was taken from.
+
+    When the engine carries an active fault policy, ``schedule`` /
+    ``responses`` / ``invoked`` / ``costs`` describe the *effective* route
+    (what was served after in-wave failover re-routed failed slots), and
+    three keyword-only fields carry the failure evidence (all ``None`` on
+    fault-free routes):
+
+      fault_schedule: (B, T) the original plan-order schedule.
+      fault_codes: (B, T) int8 observed fault per original plan cell
+        (``FAULT_TIMEOUT``/``FAULT_ERROR`` at failures the wavefront
+        attempted, ``FAULT_DEGRADE`` at silently-degraded cells it served,
+        0 everywhere else).
+      arm_fault_counts: (L,) attempted timeout/error failures per arm.
     """
 
     def __init__(
@@ -79,6 +108,10 @@ class RouteResult:
         arm_query_counts: np.ndarray,
         waves: int,
         beliefs: Optional[np.ndarray] = None,
+        *,
+        fault_schedule: Optional[np.ndarray] = None,
+        fault_codes: Optional[np.ndarray] = None,
+        arm_fault_counts: Optional[np.ndarray] = None,
     ):
         self.predictions = predictions
         self.costs = costs
@@ -91,6 +124,9 @@ class RouteResult:
         self.arm_query_counts = arm_query_counts
         self.waves = waves
         self.beliefs = beliefs
+        self.fault_schedule = fault_schedule
+        self.fault_codes = fault_codes
+        self.arm_fault_counts = arm_fault_counts
         self._arms_used: Optional[List[List[int]]] = None
 
     @property
@@ -120,7 +156,8 @@ def _wave_scan_core(
     responses: torch.Tensor,  # (T, B) int32 precomputed responses, -1 = none
     weights: torch.Tensor,    # (T, B) f64 log belief weight per wave
     residual: torch.Tensor,   # (T, B) f64 Prop. 4 log F residuals
-    src: torch.Tensor,        # (T, B) int64 failover gather (identity = no fault)
+    src: torch.Tensor,        # (T, B) int64 failover gather: original wave
+                              #   index serving slot t (identity = no fault)
     valid: torch.Tensor,      # (T, B) bool slot t has an available arm
     empty: torch.Tensor,      # (B,) f64 empty-class log belief
     stop_margin: float,
@@ -138,6 +175,15 @@ def _wave_scan_core(
     explicit chain over t in the host loop's order (bit-identical float64
     beliefs). Under ``use_kernel`` every prefix of every query is one row
     of a single ``belief_aggregate`` launch.
+
+    **In-wave failover** (``src``/``valid``): slot t of each query's wave
+    program serves the plan's t-th *available* arm; the gather comes from
+    the host-side fault grid as data. Invalid cells read the pad values the
+    tables hold there (schedule -1, weight 0, residual -inf), so the
+    identity gather of fault-free traffic is a no-op. The gathered residual
+    is the original plan's suffix value at the source position — an upper
+    bound on the remaining evidence, so Prop. 4 never stops earlier than a
+    fault-free run would.
 
     Returns (stop_wave (B,) — waves invoked per query, predictions (B,)
     first-max argmax, log-beliefs (B, K) at the stop wave).
@@ -219,6 +265,9 @@ class PendingRoute:
         self.router = router
         self.kind = kind
         self.spec_cost = state.pop("spec_cost", 0.0)
+        # estimator plan-version the group's plans were gathered at (a served
+        # group can be attributed to the estimate generation that planned it)
+        self.plan_version = state.pop("plan_version", 0)
         self._result: Optional[RouteResult] = result
         if result is not None:
             return
@@ -233,12 +282,16 @@ class PendingRoute:
         self.payloads = state.pop("payloads")
         self.stop_margin = state.pop("stop_margin")
         self.rng = state.pop("rng")
+        # batch-row offset of this group inside a logically fused batch —
+        # keeps per-worker fault draws identical to the fused dispatch's
+        self.fault_row_offset = int(state.pop("fault_row_offset", 0))
         if state:
             raise TypeError(f"unknown PendingRoute state {sorted(state)}")
         self.B = int(self.budgets.shape[0])
         self.T = int(self.sched_T.shape[0])
         self.L = len(router.engine.arms)
         if kind == "reference":
+            self._prepare_reference_faults()
             self._init_reference()
 
     # ------------------------------------------------------------------
@@ -247,25 +300,51 @@ class PendingRoute:
     def _dispatch_jit(self):
         router, T, B = self.router, self.T, self.B
         sched_T, engine = self.sched_T, router.engine
+        codes, failed = engine.fault_grid(sched_T, row_offset=self.fault_row_offset)
+        self._orig_sched_T = sched_T
+        self._codes, self._failed = codes, failed
         # one heterogeneous-arm engine call for every scheduled cell; the
         # device program decides which cells the adaptive loop uses
         if engine.pooled:
             resp_T = engine.invoke_grid(sched_T, self.payloads)
         else:
             mask = sched_T >= 0
+            if failed is not None:
+                mask &= ~failed          # a failed arm yields no response
             _, rows_b = np.nonzero(mask)
             resp_T = np.full((T, B), -1, np.int64)
             if rows_b.size:
                 resp_T[mask] = engine.invoke_rows(sched_T[mask], self.payloads, rows_b)
+        if codes is not None:
+            resp_T = np.where(failed, -1, resp_T)
+            degr = codes == FAULT_DEGRADE
+            if degr.any():
+                # silent degradation: the arm answers (and bills), but with a
+                # hash-drawn class — response-independent, so the reference
+                # plane corrupts the same cells to the same classes
+                resp_T = np.where(
+                    degr,
+                    engine.fault_policy.corrupt_grid(sched_T, row_offset=self.fault_row_offset),
+                    resp_T,
+                )
         self.resp_T = resp_T
 
         dev = router.device
         put = lambda x, dtype: torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dtype)
-        src = torch.arange(T, device=dev)[:, None].expand(T, B)   # fault-free identity
+        # in-wave failover gather: identity on fault-free traffic
+        if failed is not None and router.failover:
+            src, valid, self._rank, self._navail = failover_gather(sched_T, failed)
+            src_d = put(src, torch.int64)
+        else:
+            src = np.broadcast_to(np.arange(T)[:, None], (T, B))
+            valid = sched_T >= 0
+            self._rank = self._navail = None
+            src_d = torch.arange(T, device=dev)[:, None].expand(T, B)
+        self._src, self._valid = src, valid
         self._dev = _wave_scan_core(
             put(sched_T, torch.int32), put(resp_T, torch.int32),
             put(self.w_T, torch.float64), put(self.res_T, torch.float64),
-            src, put(sched_T >= 0, torch.bool), put(self.empty, torch.float64),
+            src_d, put(valid, torch.bool), put(self.empty, torch.float64),
             self.stop_margin,
             num_classes=router.num_classes, use_kernel=router.use_kernel,
         )
@@ -280,35 +359,101 @@ class PendingRoute:
             return True
         return bool(self._done.query())
 
+    def _fault_kwargs(self, stop_wave: np.ndarray) -> dict:
+        """Fault-evidence fields for RouteResult; {} on fault-free routes."""
+        codes = getattr(self, "_codes", None)
+        if codes is None:
+            return {}
+        obs = observed_faults(codes, self._orig_sched_T, stop_wave, self._rank, self._navail)
+        hit = (obs == FAULT_TIMEOUT) | (obs == FAULT_ERROR)
+        return dict(
+            fault_schedule=self._orig_sched_T.T,
+            fault_codes=obs.T,
+            arm_fault_counts=np.bincount(self._orig_sched_T[hit], minlength=self.L),
+        )
+
     def _finalize_jit(self) -> RouteResult:
         s_d, pred_d, beliefs_d = self._dev
-        T, L = self.T, self.L
+        B, T, L = self.B, self.T, self.L
         stop_wave = s_d.cpu().numpy()
         beliefs = beliefs_d.cpu().numpy()
         if self.rng is None:
             predictions = pred_d.cpu().numpy().astype(np.int64)
         else:
             predictions, _ = tie_break_argmax(beliefs, self.rng)
-        invoked_T = np.arange(T)[:, None] < stop_wave[None, :]
-        costs = np.where(invoked_T, self.wc_T, 0.0).sum(axis=0)
-        responses_T = np.where(invoked_T, self.resp_T, -1)
+        if self._failed is None:
+            sched_T = self.sched_T
+            invoked_T = np.arange(T)[:, None] < stop_wave[None, :]
+            costs = np.where(invoked_T, self.wc_T, 0.0).sum(axis=0)
+            responses_T = np.where(invoked_T, self.resp_T, -1)
+        else:
+            # report the *effective* route — post-failover schedule, the
+            # responses actually obtained, spend charged for the arms
+            # actually invoked — so downstream accounting stays fault-blind
+            src, valid = self._src, self._valid
+            bb = np.broadcast_to(np.arange(B)[None, :], (T, B))
+            sched_T = np.where(valid, self.sched_T[src, bb], -1)
+            resp_eff = np.where(valid, self.resp_T[src, bb], -1)
+            wc_eff = np.where(valid, self.wc_T[src, bb], 0.0)
+            invoked_T = (np.arange(T)[:, None] < stop_wave[None, :]) & (sched_T >= 0)
+            if not self.router.failover:
+                # frozen plans: a failed slot's wave still elapses, but the
+                # arm never answered — not served, not charged
+                invoked_T &= ~self._failed
+            costs = np.where(invoked_T, wc_eff, 0.0).sum(axis=0)
+            responses_T = np.where(invoked_T, resp_eff, -1)
         return RouteResult(
             predictions=predictions,
             costs=costs,
             planned_costs=self.planned,
             clusters=self.cluster_ids,
             budgets=np.asarray(self.budgets),
-            schedule=self.sched_T.T,
+            schedule=sched_T.T,
             responses=responses_T.T,
             invoked=invoked_T.T,
-            arm_query_counts=np.bincount(self.sched_T[invoked_T], minlength=L),
+            arm_query_counts=np.bincount(sched_T[invoked_T], minlength=L),
             waves=int(invoked_T.any(axis=1).sum()),
             beliefs=beliefs,
+            **self._fault_kwargs(stop_wave),
         )
 
     # ------------------------------------------------------------------
     # reference kind: compacting wavefront, one step() per wave
     # ------------------------------------------------------------------
+    def _prepare_reference_faults(self):
+        """Mirror the device plane's fault handling on the host wavefront:
+        the same single fault grid and failover gather, materialized into
+        the plan tables up front (the compacting loop then runs unchanged
+        over the *effective* plan)."""
+        engine = self.router.engine
+        codes, failed = engine.fault_grid(self.sched_T, row_offset=self.fault_row_offset)
+        self._orig_sched_T = self.sched_T
+        self._codes, self._failed = codes, failed
+        self._rank = self._navail = None
+        self._degrade_T = None
+        if codes is None:
+            return
+        T, B = self.sched_T.shape
+        degr = codes == FAULT_DEGRADE
+        corrupt = None
+        if degr.any():
+            corrupt = np.where(
+                degr,
+                engine.fault_policy.corrupt_grid(self.sched_T, row_offset=self.fault_row_offset),
+                -1,
+            )
+        if self.router.failover:
+            src, valid, self._rank, self._navail = failover_gather(self.sched_T, failed)
+            bb = np.broadcast_to(np.arange(B)[None, :], (T, B))
+            self.sched_T = np.where(valid, self.sched_T[src, bb], -1)
+            self.w_T = np.where(valid, self.w_T[src, bb], 0.0)
+            self.res_T = np.where(valid, self.res_T[src, bb], -np.inf)
+            self.wc_T = np.where(valid, self.wc_T[src, bb], 0.0)
+            if corrupt is not None:
+                self._degrade_T = np.where(valid, corrupt[src, bb], -1)
+        else:
+            self._degrade_T = corrupt
+
     def _init_reference(self):
         B, K = self.B, self.router.num_classes
         self.weights = self.w_T.T                # (B, T) view for the kernel
@@ -380,14 +525,23 @@ class PendingRoute:
         if cur.size == 0:
             self._exhausted = True
             return stopped, preds
-        self.waves += 1
-        arms_t = sched_t[cur]
-        votes = self.router.engine.invoke_rows(arms_t, self.payloads, cur)
-        self.arm_query_counts += np.bincount(arms_t, minlength=self.L)
-        self.vote[cur, votes] += self.w_T[t][cur]
-        self.voted[cur, votes] = True
-        self.costs[cur] += self.wc_T[t][cur]
-        self.resp_T[t][cur] = votes
+        live = cur
+        if self._failed is not None and not self.router.failover:
+            # frozen plans under faults: the wave elapses for every in-flight
+            # query, but failed arms are never invoked, charged, or counted
+            live = cur[~self._failed[t][cur]]
+        if live.size:
+            self.waves += 1
+            arms_t = sched_t[live]
+            votes = self.router.engine.invoke_rows(arms_t, self.payloads, live)
+            if self._degrade_T is not None:
+                ov = self._degrade_T[t][live]
+                votes = np.where(ov >= 0, ov, votes)
+            self.arm_query_counts += np.bincount(arms_t, minlength=self.L)
+            self.vote[live, votes] += self.w_T[t][live]
+            self.voted[live, votes] = True
+            self.costs[live] += self.wc_T[t][live]
+            self.resp_T[t][live] = votes
         return stopped, preds
 
     def _finalize_reference(self) -> RouteResult:
@@ -411,6 +565,7 @@ class PendingRoute:
             arm_query_counts=self.arm_query_counts,
             waves=self.waves,
             beliefs=beliefs,
+            **self._fault_kwargs(self.stop_at),
         )
 
     # ------------------------------------------------------------------
@@ -440,6 +595,11 @@ class ThriftRouter:
         ``False`` routes through the compacting host loop
         (:meth:`route_batch_reference`), which never invokes arms
         speculatively.
+      failover: with an active engine fault policy, re-route a failed arm's
+        wave slot to the plan's next-best affordable arm inside the wave
+        program (both planes, identical semantics); ``False`` freezes the
+        plan — failed slots lose their vote (and are not charged).
+        Irrelevant without injected faults.
       plan_service: optionally share a :class:`PlanService` across routers
         bound to the same pool; by default each router owns one.
       device: where planning and the wave loop run. A CUDA device must
@@ -456,6 +616,7 @@ class ThriftRouter:
         seed: int = 0,
         use_kernel: bool = False,
         jit_waves: bool = True,
+        failover: bool = True,
         plan_service: Optional[PlanService] = None,
         device="cuda",
     ):
@@ -464,6 +625,7 @@ class ThriftRouter:
         self.num_classes = int(num_classes)
         self.use_kernel = bool(use_kernel)
         self.jit_waves = bool(jit_waves)
+        self.failover = bool(failover)
         self.device = torch.device(device)
         self.selector = ThriftLLM(
             engine.costs, eps=eps, delta=delta, seed=seed, use_kernel=use_kernel,
@@ -561,6 +723,7 @@ class ThriftRouter:
         rng: Optional[np.random.Generator] = None,
         mode: str = "auto",
         speculation_threshold: float = 0.0,
+        fault_row_offset: int = 0,
     ) -> PendingRoute:
         """Start routing a batch and return a :class:`PendingRoute` handle:
         planning, the data-plane choice and (for the ``"jit"`` kind) the
@@ -572,6 +735,9 @@ class ThriftRouter:
             compacting host wavefront, and ``"auto"`` picks ``"jit"`` when
             :meth:`speculation_cost` is at most ``speculation_threshold``
             (and the router is not pinned to the reference plane).
+          fault_row_offset: this batch's starting row inside a logically
+            fused batch, so fault draws (keyed on batch row) equal the
+            single fused dispatch's.
         """
         B = len(queries)
         budgets = np.broadcast_to(np.asarray(budget, np.float64), (B,))
@@ -594,6 +760,8 @@ class ThriftRouter:
             w_T=w_T, res_T=res_T, wc_T=wc_T, empty=empty, planned=planned,
             payloads=self.engine.prepare_payloads(queries),
             stop_margin=float(stop_margin), rng=rng, spec_cost=spec_cost,
+            plan_version=getattr(self.estimator, "plan_version", 0),
+            fault_row_offset=fault_row_offset,
         )
         if kind == "jit":
             pending._dispatch_jit()

@@ -32,9 +32,23 @@ def test_port_files_exist():
         "src/repro_torch/kernels/rglru_scan.py", "src/repro_torch/kernels/mamba_scan.py",
         "src/repro_torch/kernels/mc_correctness.py", "src/repro_torch/csrc/mc_correctness.cu",
         "src/repro_torch/core/cascade.py", "src/repro_torch/core/belief.py",
-        "src/repro_torch/budget_sweep.py",
+        "src/repro_torch/budget_sweep.py", "src/repro_torch/distributed/fault.py",
+        "src/repro_torch/serving/feedback.py", "src/repro_torch/serving/scheduler.py",
     ):
         assert want in names
+
+
+def test_serving_exports_the_front_door():
+    """``repro_torch.serving`` exports what the reference's serving package
+    does, but the replica set and the compile cache."""
+    import repro_torch.serving as serving
+
+    for name in ("BatchScheduler", "CostLedger", "Request", "RequestFuture", "RequestResult",
+                 "BlockFuture", "FeedbackLog", "FeedbackReport", "FeedbackShard",
+                 "DegradationTracker", "merge_counts", "ArmFaultSpec", "FaultPolicy",
+                 "USD_PER_FLOP", "LMArm", "OracleArm", "PoolEngine", "GroupPlan", "PlanService",
+                 "ThriftRouter", "RouteResult", "PendingRoute"):
+        assert name in serving.__all__ and hasattr(serving, name), name
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -46,6 +46,12 @@ SINGLE = [(8000, 8, 8, 4), (300, 12, 1, 4), (16843, 12, 12, 77), (1000, 8, 6, 17
           (700, 8, 3, 1), (1000, 8, 6, 19), (3000, 12, 5, 128), (2500, 32, 7, 4),
           (4099, 12, 4, 4), (2000, 12, 5, 1000), (8471, 33, 8, 4), (8471, 64, 8, 4),
           (8471, 128, 8, 4), (3000, 256, 4, 4), (2000, 40, 5, 1000), (500, 1024, 3, 3000)]
+# (G, T, L, K, C), drawn uniformly with half the arms on classes 0-2: past
+# the limits of earlier versions — 1100 arms (int16 staging, one warp),
+# 40000 classes on the register kernel (L=12) and the wide one (int32
+# staging), and without staging: L=1100 at K=40000 and L=2100 at K=4
+LIFTED = [(2, 300, 1100, 4, 3), (2, 300, 12, 40000, 3), (2, 300, 64, 40000, 3),
+          (1, 300, 1100, 40000, 3), (2, 300, 2100, 4, 3), (1, 300, 2100, 40, 3)]
 
 
 @pytest.fixture
@@ -92,6 +98,50 @@ def test_mc_correctness_grouped_matches_plain(cuda, G, theta, L, K, C):
     assert got.shape == (G, C) and got.dtype == torch.float32
     # integer tie histograms and the plain version's f64 combine: bitwise
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _lifted_inputs(G, T, L, K, C, dev):
+    rng = np.random.default_rng(L + K + G)
+    resp = rng.integers(-1, K, (G, T, L)).astype(np.int32)
+    resp[:, :, : L // 2] = rng.integers(-1, 3, (G, T, L // 2))
+    masks = (rng.random((G, C, L)) < 0.6).astype(np.float32)
+    masks[:, -1] = 0.0                                   # the empty set too
+    valid = np.ones((G, T), np.float32)
+    valid[:, T - T // 7:] = 0.0                          # a ragged theta
+    arrays = (resp, masks, rng.uniform(0.3, 3.0, (G, L)).astype(np.float32),
+              rng.uniform(-3.0, -0.5, G).astype(np.float32), valid,
+              valid.sum(axis=1).astype(np.float32))
+    return [torch.as_tensor(a, device=dev) for a in arrays]
+
+
+@pytest.mark.parametrize("G,T,L,K,C", LIFTED)
+def test_mc_kernels_match_plain_past_the_old_limits(cuda, G, T, L, K, C):
+    resp, masks, w, empty, valid, theta = _lifted_inputs(G, T, L, K, C, cuda)
+    got = ops.mc_correctness_grouped(resp, masks, w, empty, valid, theta, K)
+    want = ref.mc_correctness_grouped_ref(resp, masks, w, empty, valid, theta, K)
+    one = ops.mc_correctness(resp[0], masks[0], w[0], empty[:1], K)
+    one_want = ref.mc_correctness_ref(resp[0], masks[0], w[0], empty[:1], K)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(one, one_want, rtol=0, atol=0)
+
+
+def test_mc_kernels_launch_in_chunks_past_65535(cuda):
+    """G and C past the grid's 65535 launch in chunks along that axis;
+    every chunk lands where it belongs, bitwise the plain version."""
+    G, T, L, K, C = 65537, 8, 4, 3, 2
+    resp, masks, w, empty, valid, theta = _lifted_inputs(G, T, L, K, C, cuda)
+    got = ops.mc_correctness_grouped(resp, masks, w, empty, valid, theta, K)
+    want = ref.mc_correctness_grouped_ref(resp, masks, w, empty, valid, theta, K)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    resp, masks, w, empty, valid, theta = _lifted_inputs(2, T, L, K, 65537, cuda)
+    got = ops.mc_correctness_grouped(resp, masks, w, empty, valid, theta, K)
+    want = ref.mc_correctness_grouped_ref(resp, masks, w, empty, valid, theta, K)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    one = ops.mc_correctness(resp[0].contiguous(), masks[0].contiguous(), w[0].contiguous(),
+                             empty[:1], K)
+    torch.testing.assert_close(one, ref.mc_correctness_ref(resp[0], masks[0], w[0], empty[:1], K),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("theta,L,C,K", SINGLE)

@@ -1,6 +1,7 @@
 """The ``mc_correctness`` kernels' CPU-side contract: the identity their
-shared CUDA body rests on, the wrappers' size checks (any L <= 1024 arms,
-any K <= 32767 classes, refused past that before a build), the estimator's
+shared CUDA body rests on, the wrappers' size checks (any L and K whose
+masked-arm list and histogram slots fit a block's shared memory, refused
+past that before a build; G and C past the grid's 65535), the estimator's
 f32 theta, and ``_build``'s library names, which hash the headers the
 sources include and the compiler's version. The kernels against their
 plain versions, on a card, are in ``test_torch_kernels_cuda.py``.
@@ -63,8 +64,10 @@ def _call(kernel: str, T: int, L: int, K: int):
 
 
 # (L, K): pools past the register kernels' 32 arms, classes past the 128 the
-# histograms once held, and the limits themselves
-TAKEN = [(33, 4), (64, 4), (256, 4), (12, 129), (40, 1024), (mck.MAX_ARMS, mck.MAX_CLASSES)]
+# histograms once held, the limits of earlier versions (1024 arms, 32767
+# classes) and past them: int32 staged ids, and no staging at all
+TAKEN = [(33, 4), (64, 4), (256, 4), (12, 129), (40, 1024), (1024, 32767), (1100, 4),
+         (64, 40000), (12, 40000), (1100, 40000), (2100, 4), (9600, 40000)]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -81,8 +84,8 @@ def test_wrappers_take_wide_pools_and_many_classes(kernel, L, K, monkeypatch):
 
 @pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("L,K,reason", [
-    (mck.MAX_ARMS + 1, 4, r"L <= 1024 arms .*shared memory"),
-    (12, mck.MAX_CLASSES + 1, r"K <= 32767 classes .*int16"),
+    (9700, 40000, r"L=9700 arms and K=40000 classes need .* shared memory"),
+    (30000, 4, r"L=30000 arms and K=4 classes need .* shared memory"),
     (12, 0, r"1 <= K"),
 ])
 def test_wrappers_refuse_past_the_limits_before_building(kernel, L, K, reason, monkeypatch):
@@ -93,6 +96,41 @@ def test_wrappers_refuse_past_the_limits_before_building(kernel, L, K, reason, m
     monkeypatch.setattr(_build, "entry", no_build)
     with pytest.raises(ValueError, match=reason):
         _call(kernel, 300, L, K)
+
+
+@pytest.mark.parametrize("L,K,staged", [(1100, 4, 2), (1024, 32767, 2), (64, 40000, 4),
+                                          (1024, 40000, 4), (1100, 40000, 0), (2100, 4, 0)])
+def test_wide_shared_bytes_follows_the_staged_id_width(L, K, staged):
+    """int16 staged ids up to 32767 classes, int32 past it, and no staging
+    where one warp's would pass 128 KB; the most warps a block stages for
+    stay within that 128 KB."""
+    S = min(K, 2 * (L + 1))
+    rest = mck._align16(4 * ((L + 31) // 32)) + 2 * mck._align16(4 * L) + mck._align16(4 * S) + 4 * S
+    stage = mck.wide_shared_bytes(L, K) - rest
+    if staged:
+        warps = stage // (staged * L * 32)
+        assert stage == warps * staged * L * 32 and 1 <= warps <= mck.WIDE_WARPS
+        assert stage <= mck.WIDE_STAGE_BYTES
+    else:
+        assert stage == 0 and L * 32 * (4 if K > mck.SHORT_CLASSES else 2) > mck.WIDE_STAGE_BYTES
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_wrappers_take_more_than_65535_candidates_in_one_call(kernel, monkeypatch):
+    """C past the grid's 65535: one call of the entry point, which launches
+    in chunks."""
+    calls = []
+    monkeypatch.setattr(mck, "_run", lambda name, dev, *args: calls.append((name, args)))
+    T, L, C = 16, 4, 65537
+    resp, masks = torch.zeros((T, L), dtype=torch.int32), torch.ones((C, L))
+    w, empty = torch.zeros(L), torch.zeros(1)
+    if kernel == "mc_correctness":
+        out = mck.launch(resp, masks, w, empty, 4)
+    else:
+        out = mck.launch_grouped(resp[None], masks[None], w[None], empty, torch.ones((1, T)),
+                                 torch.full((1,), float(T)), 4)
+    assert [name for name, _ in calls] == [kernel]
+    assert out.shape[-1] == C
 
 
 def test_grouped_estimator_caches_its_f32_theta():

@@ -101,8 +101,8 @@ def test_launch_validates_before_building():
     """Bad inputs are refused before the kernel is built."""
     resp = torch.zeros((300, 4), dtype=torch.int32)
     masks, w, empty = torch.ones((2, 4)), torch.zeros(4), torch.zeros(1)
-    with pytest.raises(ValueError, match="K <= 32767"):
-        tmc_kernel.launch(resp, masks, w, empty, 32768)
+    with pytest.raises(ValueError, match="1 <= K"):
+        tmc_kernel.launch(resp, masks, w, empty, 0)
     with pytest.raises(ValueError, match="responses"):
         tmc_kernel.launch(resp.to(torch.int64), masks, w, empty, 4)
     with pytest.raises(ValueError, match="masks"):

@@ -1,5 +1,6 @@
 """The port's kernels past the sizes their first CUDA versions took (32 arms,
-128 classes), held to the JAX package, which takes any: the plain versions
+128 classes) and past the limits of later ones (1024 arms, 32767 classes),
+held to the JAX package, which takes any: the plain versions
 (the kernels' CPU route) against the Pallas kernels in interpret mode, as
 the JAX package's own tests run them, and against its oracles.
 
@@ -28,6 +29,8 @@ from repro.kernels.belief_aggregate import belief_aggregate_pallas
 from repro_torch.core import McXiEstimator, prng
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+
+from _torch_serving import one_torch_thread  # noqa: F401  (autouse: torch on one CPU thread)
 
 XI_ATOL = 1e-6
 
@@ -98,3 +101,56 @@ def test_single_pool_plain_xi_matches_jax_on_wide_pools(theta, L, C, K):
     jargs = (ref._responses, jnp.asarray(masks), ref._w, ref._empty, K)
     np.testing.assert_allclose(got, np.asarray(jmc.xi_from_responses(*jargs)), rtol=0, atol=XI_ATOL)
     np.testing.assert_allclose(got, np.asarray(jops.mc_correctness(*jargs)), rtol=0, atol=XI_ATOL)
+
+
+
+def _lifted(G, theta, L, K, C):
+    rng = np.random.default_rng(L + K)
+    resp = rng.integers(-1, K, (G, theta, L)).astype(np.int32)
+    resp[:, :, : L // 2] = rng.integers(-1, 3, (G, theta, L // 2))   # votes on class 0 too
+    masks = (rng.random((G, C, L)) < 0.6).astype(np.float32)
+    masks[:, -1] = 0.0                                   # the empty set too
+    w = rng.uniform(0.3, 3.0, (G, L)).astype(np.float32)
+    empty = rng.uniform(-3.0, -0.5, G).astype(np.float32)
+    return resp, masks, w, empty
+
+
+def test_grouped_plain_xi_matches_jax_past_1024_arms():
+    """1100 arms, past the 1024 the CUDA kernels once took: the port's
+    grouped xi (the kernels' CPU route) bitwise the JAX package's grouped
+    oracle, run op by op (its arm chain unrolled 1100 times would take
+    long to compile), at a small theta with a ragged last draw."""
+    G, theta, L, K, C = 1, 4, 1100, 4, 3
+    resp, masks, w, empty = _lifted(G, theta, L, K, C)
+    valid = np.ones((G, theta), np.float32)
+    valid[:, -1] = 0.0
+    theta_f = np.full(G, theta - 1, np.float64)
+    got = tops.mc_correctness_grouped(
+        *(torch.as_tensor(a) for a in (resp, masks, w, empty, valid, theta_f.astype(np.float32))),
+        K,
+    ).numpy()
+    assert got.dtype == np.float32 and got.shape == (G, C)
+    with jax.disable_jit(), jax.check_tracer_leaks(False):
+        oracle = jref.mc_correctness_grouped_ref(resp, masks, w, empty, valid, theta_f, K)
+    np.testing.assert_array_equal(got, np.asarray(oracle))
+
+
+@pytest.mark.parametrize("L,K", [(64, 40000), (1100, 40000)])
+def test_plain_xi_matches_jax_past_32767_classes(L, K):
+    """40000 classes, past the 32767 the CUDA kernels once took: the port's
+    single-pool xi within the reference's 1e-6 of the JAX oracle, and
+    bitwise its grouped xi at G=1 (one body serves both kernels)."""
+    theta, C = 2, 3
+    resp, masks, w, empty = _lifted(1, theta, L, K, C)
+    args = (torch.as_tensor(resp[0]), torch.as_tensor(masks[0]), torch.as_tensor(w[0]),
+            torch.as_tensor(empty[:1]), K)
+    got = tops.mc_correctness(*args).numpy()
+    assert got.dtype == np.float32 and got.shape == (C,)
+    grouped = tops.mc_correctness_grouped(
+        torch.as_tensor(resp), torch.as_tensor(masks), torch.as_tensor(w),
+        torch.as_tensor(empty), torch.ones((1, theta)), torch.tensor([float(theta)]), K,
+    ).numpy()
+    np.testing.assert_array_equal(got, grouped[0])
+    want = jmc.xi_from_responses(jnp.asarray(resp[0]), jnp.asarray(masks[0]),
+                                 jnp.asarray(w[0]), jnp.float32(empty[0]), K)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=XI_ATOL)
