@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path — the router and the continuous-
-batching front door — GreedyLLM and the paper's baselines on one CUDA card
-and check them.
+"""Drive the PyTorch port's serving path — the router, the continuous-
+batching front door, the replica plane and the serve CLI — GreedyLLM and
+the paper's baselines on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -128,7 +128,40 @@ Phases:
     device's idle share of one profiled floodgates stream. A
     ``[scheduler]`` line prints qps, p50/p99, accuracy, planes, flushes,
     plan counters, failures, drifts, ledger rejections and downgrades and
-    launches per setting.
+    launches per setting;
+15. replicas — the ``ReplicaSet`` and the serve CLI, ``use_kernel`` on.
+    (a) phase 14's stream (limit and all; its mixed block admitted by
+    ``drain()``, as the reference's replica tests drive mixed budgets, in
+    both runs: a ``ReplicaSet`` has no ``flush()``) through
+    ``ReplicaSet(replicas=1)`` equals a ``BatchScheduler``'s on the card:
+    blocks, every shared counter, the ledger snapshot, bitwise; (b) the
+    same stream with no ledger limit at R=4 in the default placement,
+    which must be ``"fused"`` on one card, card vs CPU bitwise
+    (``replica_fused``, ``replica_fused_rows`` and ``replica_spills``
+    included); the launch counters, zeroed just before its card run and
+    read just after it, must be above 0 for ``belief_aggregate`` (every
+    route) and ``mc_correctness_grouped`` (the serial planner's Alg. 2
+    candidates, when a drift replans one stale pair alone; the limited
+    stream's rejections leave it none, so (b) runs unlimited); then R=4
+    ``placement="overlapped"`` on the limited stream card vs CPU; (c) R=4 overlapped over a
+    tabular pool (the serve defaults' 12 arms, answers drawn once) with
+    faults on every arm and the failures folded by a ``FeedbackLog``: the
+    four workers hold four distinct CUDA streams (none the default
+    stream), and card overlapped == card fused == CPU overlapped, bitwise
+    (the placements' own dispatch counters and plan hits aside), and the
+    overlapped set once more with its streams taken away (every worker on
+    the current stream; equal, bitwise, and timed: what the streams buy);
+    (d) ``python -m
+    repro_torch.launch.serve --queries 500 --budget 1e-4 --replicas 4
+    --fault-rate 0.1 --drift-after 250 --probe-rate 0.02`` as a
+    subprocess on the card, its time-free fields equal to ``--device
+    cpu``'s, then ``--qps 5000 --slo-ms 50`` with probes and no drift
+    (clocked, so only run and echoed); (e) ``python -m
+    repro_torch.quickstart --queries 80 --history 300`` on the card prints
+    exactly what it prints with ``--device cpu``. A ``[replicas]`` line
+    prints qps and p50/p99 per placement (R=1 inline, R=4 fused and
+    overlapped, the tabular streams), the launches, and the idle share of
+    one profiled R=4 floodgates stream.
 
 Two lines before the last is a JSON object listing every kernel with its
 launches, error, bound and times — ``ms``/``plain_ms``/``library_ms`` are
@@ -142,7 +175,8 @@ CUDA-event wall time per call, host dispatch included; a router kernel's
 ``launches`` count phases 4-5 and its ``lm_route_launches`` phase 9, a
 model kernel's ``launches`` phase 9, ``mc_correctness``'s phase 11; the
 three router kernels' ``wide_pool_launches`` count phase 13, the two
-router kernels' ``scheduler_launches`` phase 14's ``use_kernel`` stream,
+router kernels' ``scheduler_launches`` phase 14's ``use_kernel`` stream
+and their ``replica_launches`` phase 15 (b)'s card stream,
 and ``lm_scheduler_launches`` the LM arms' scheduler run in phase 9; the
 two ``mc_correctness`` rows carry ``lifted``, their phase-3 cases past
 the limits of earlier versions, timed.
@@ -162,6 +196,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -1501,7 +1537,8 @@ SERVE_TIERS = (2.5e-5, 5e-5, 1e-4)   # the ledger's downgrade ladder
 LEDGER_SHARE = 0.8               # the limited tenant's share of its unlimited spend
 
 
-def serve_stream(where, use_kernel: bool, limit, stream) -> dict:
+def serve_stream(where, use_kernel: bool, limit, stream, replicas: int = 0,
+                 placement=None, mixed_by: str = "flush") -> dict:
     """``launch/serve.py --queries 500 --budget 1e-4 --fault-rate 0.1
     --drift-after 250 --probe-rate 0.02`` at ``--qps 0`` (the floodgates)
     on the port, with a ``CostLedger`` whose tenant "acme" (every other
@@ -1509,13 +1546,16 @@ def serve_stream(where, use_kernel: bool, limit, stream) -> dict:
     pool, fault policy and estimator; blocks of ``max_batch`` submitted and
     drained in turn, their labels recorded, the truth drifted after 250
     queries; then one mixed-budget block of 64 (budgets the 0.3 and 0.8
-    cost quantiles x 2.5) admitted by ``flush()``, one heterogeneous route
-    whose plan misses plan serially. Admission is by size, never by the
-    clock. Returns the blocks, the counters, the ledger snapshot and the
-    stream's wall time."""
+    cost quantiles x 2.5) admitted by ``flush()`` (``mixed_by="flush"``,
+    one heterogeneous route whose plan misses plan serially) or by
+    ``drain()`` (one budget group each; a ``ReplicaSet`` has no
+    ``flush``). ``replicas`` > 0 serves through a ``ReplicaSet`` of that many replicas
+    (``placement`` None: its default) instead of a ``BatchScheduler``.
+    Admission is by size, never by the clock. Returns the blocks, the
+    counters, the ledger snapshot and the stream's wall time."""
     from repro_torch import convert
     from repro_torch.distributed.fault import FaultPolicy
-    from repro_torch.serving import BatchScheduler, CostLedger, FeedbackLog
+    from repro_torch.serving import BatchScheduler, CostLedger, FeedbackLog, ReplicaSet
 
     wl_state, history, arms, payloads, qemb, labels, mixed = stream
     router = convert.router_from_state(wl_state, history, arms, 4, eps=0.1, delta=0.01,
@@ -1528,9 +1568,11 @@ def serve_stream(where, use_kernel: bool, limit, stream) -> dict:
     ledger = CostLedger(num_arms=len(arms))
     if limit is not None:
         ledger.set_limit("acme", limit)
-    sched = BatchScheduler(router, max_batch=64, max_wait_s=0.002,
-                           feedback=FeedbackLog(router.estimator, probe_rate=SERVE_PROBE_RATE),
-                           ledger=ledger, budget_tiers=SERVE_TIERS)
+    kwargs = dict(max_batch=64, max_wait_s=0.002,
+                  feedback=FeedbackLog(router.estimator, probe_rate=SERVE_PROBE_RATE),
+                  ledger=ledger, budget_tiers=SERVE_TIERS)
+    sched = (ReplicaSet(router, replicas=replicas, placement=placement, **kwargs) if replicas
+             else BatchScheduler(router, **kwargs))
     sched.prewarm(budgets=[SERVE_BUDGET])
     tenants = np.where(np.arange(SERVE_QUERIES) % 2 == 0, "acme", "zen").astype(object)
     drifted = False
@@ -1549,7 +1591,7 @@ def serve_stream(where, use_kernel: bool, limit, stream) -> dict:
     sched.apply_feedback()
     m_pay, m_emb, m_bud = mixed
     blk = sched.submit_many(m_pay, m_emb, m_bud, tenant="zen")
-    sched.flush()
+    sched.flush() if mixed_by == "flush" else sched.drain()
     blocks.append(blk)
     if where.type == "cuda":
         torch.cuda.synchronize()
@@ -1557,7 +1599,8 @@ def serve_stream(where, use_kernel: bool, limit, stream) -> dict:
     stats = dict(sched.stats)
     return {"blocks": blocks, "stats": stats, "ledger": json.dumps(ledger.snapshot(), sort_keys=True),
             "wall_s": wall_s, "latency": sched.latency_stats(), "labels": labels,
-            "acme_spent": ledger.tenant("acme")["spent"]}
+            "acme_spent": ledger.tenant("acme")["spent"],
+            "placement": getattr(sched, "placement", None)}
 
 
 def stream_inputs():
@@ -1696,6 +1739,245 @@ def scheduler_phase(dev) -> dict:
     out["profiled"] = {"wall_s": run["wall_s"], "device_busy_s": busy,
                        "idle_share": 1.0 - busy / run["wall_s"]}
     log(f"  profiled floodgates stream (use_kernel=True): {json.dumps(out['profiled'])}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the R-replica serving plane and the serve CLI
+# ---------------------------------------------------------------------------
+
+REPLICAS = 4
+TABULAR_QUERIES = 512            # phase 15 (c): four blocks of 128, then a mixed block of 128
+CLOCKED = re.compile(r" in [0-9.]+s \([0-9]+ qps\) \| p50 [0-9.]+ms p99 [0-9.]+ms")
+SERVE_ARGS = ["--queries", str(SERVE_QUERIES), "--budget", "1e-4", "--replicas", str(REPLICAS),
+              "--fault-rate", "0.1"]
+QUICKSTART_ARGS = ["--queries", "80", "--history", "300"]
+
+
+@dataclasses.dataclass
+class TabularArm:
+    """Deterministic arm: the response to query j is the precomputed
+    ``resp[j]`` (so a row's answer does not depend on its batch). The
+    tests' copy in ``tests/_torch_serving.py`` sits in a module that
+    imports JAX and the JAX package, which this script must not."""
+
+    name: str
+    cost: float
+    resp: np.ndarray
+    metered: bool = False
+
+    def classify_batch(self, queries) -> np.ndarray:
+        return self.resp[np.asarray(queries, np.int64)]
+
+    def latency_s(self, batch: int) -> float:
+        return 1e-6 * self.cost * batch
+
+
+def tabular_inputs():
+    """A tabular pool at the serve defaults (12 arms, K=4, 6 clusters, a
+    2000-query history): every arm's answers to 640 queries drawn once."""
+    from repro_torch.core.clustering import kmeans
+    from repro_torch.data.synth import OracleWorkload
+
+    wl = OracleWorkload(num_classes=4, num_clusters=6, num_arms=12, seed=0)
+    table, emb, _ = wl.response_table(2000, seed=1)
+    assign, _ = kmeans(emb, 6, seed=0)
+    n = TABULAR_QUERIES + 128
+    rng = np.random.default_rng(3)
+    qcid, qemb, qlab = wl.sample_queries(n, rng)
+    resp = np.stack([wl.invoke_batch(a, qcid, qlab, np.random.default_rng(100 + a))
+                     for a in range(12)])
+    budgets = rng.choice(np.quantile(wl.costs, [0.3, 0.8]) * 2.5, size=128)
+    return wl.costs, (table, emb, assign), resp, qemb, budgets
+
+
+def tabular_stream(where, placement: str, inputs, side_streams: bool = True) -> dict:
+    """R=4 over the tabular pool with ``use_kernel=True`` under an active
+    ``FaultPolicy`` (every arm: timeout 0.05, error 0.03, degrade 0.02,
+    seed 7) and a ``FeedbackLog`` (the failures fold into the estimator;
+    no labels, no probes): four blocks of 128 at 1e-4 USD, then a
+    mixed-budget block of 128, each submitted and drained. Its own driver,
+    not ``serve_stream``: this pool has no workload to drift, no labels
+    and no ledger. ``side_streams=False`` takes the overlapped workers'
+    streams away, so that they launch on the current stream: a timing
+    comparison of what the streams buy, not a placement of the set.
+    Returns the blocks, the counters and the workers' streams."""
+    from repro_torch.core.estimation import SuccessProbEstimator
+    from repro_torch.distributed.fault import FaultPolicy
+    from repro_torch.serving import PoolEngine, ReplicaSet, ThriftRouter
+
+    costs, (table, emb, assign), resp, qemb, budgets = inputs
+    engine = PoolEngine([TabularArm(f"t{a}", float(costs[a]), resp[a]) for a in range(12)])
+    engine.fault_policy = FaultPolicy(12, 4, seed=7).set_arms(
+        range(12), timeout=0.05, error=0.03, degrade=0.02)
+    router = ThriftRouter(engine, SuccessProbEstimator(table, emb, assign), 4,
+                          use_kernel=True, device=where)
+    rset = ReplicaSet(router, replicas=REPLICAS, max_batch=64, max_wait_s=0.002,
+                      feedback=True, placement=placement)
+    if not side_streams:
+        for w in rset.workers:
+            w.stream = None
+    blocks = []
+    t0 = time.perf_counter()
+    for lo in range(0, TABULAR_QUERIES + 128, 128):
+        rows = np.arange(lo, lo + 128)
+        budget = SERVE_BUDGET if lo < TABULAR_QUERIES else budgets
+        blocks.append(rset.submit_many(rows, qemb[rows], budget))
+        rset.drain()
+    if where.type == "cuda":
+        torch.cuda.synchronize()
+    return {"blocks": blocks, "stats": dict(rset.stats), "ledger": None,
+            "wall_s": time.perf_counter() - t0, "latency": rset.latency_stats(),
+            "streams": [w.stream for w in rset.workers]}
+
+
+def replica_summary(run: dict) -> dict:
+    st, lat = run["stats"], run["latency"]
+    return {"qps": st["completed"] / run["wall_s"], "p50_ms": lat["p50_s"] * 1e3,
+            "p99_ms": lat["p99_s"] * 1e3, "completed": st["completed"],
+            "fused": st["replica_fused"], "fused_rows": st["replica_fused_rows"],
+            "overlapped": st["replica_overlapped"],
+            "overlapped_rows": st["replica_overlapped_rows"], "spills": st["replica_spills"],
+            "groups": st["batches"], "attempted_failures": st.get("degradation_failures", 0)}
+
+
+def run_cli(module: str, args: list) -> str:
+    """``python -m <module> <args>`` from the checkout with ``PYTHONPATH=src``;
+    its lines are echoed, and a non-zero exit raises."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.strip().splitlines():
+        log(f"    | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {module} {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def time_free(out: str) -> list:
+    return [CLOCKED.sub("", line) for line in out.strip().splitlines()]
+
+
+def replica_phase(dev, limit: float) -> dict:
+    """(a) the phase-14 stream (``use_kernel`` on, its mixed block drained)
+    through ``ReplicaSet(replicas=1)`` on the card equals a
+    ``BatchScheduler``'s on the card, bitwise; (b) the same stream with no
+    ledger limit at R=4 in the default placement (fused on one card), card
+    vs CPU bitwise, the router kernels' launch counters zeroed just before
+    its card run and above 0 just after it; the overlapped placement of
+    the limited stream card vs CPU; (c)
+    R=4 overlapped over a tabular pool with faults: four distinct worker
+    streams, card overlapped == card fused == CPU overlapped, and timed
+    against the same workers on the current stream; (d) the serve
+    CLI at R=4 on the card (its time-free lines equal ``--device cpu``'s)
+    and at ``--qps 5000 --slo-ms 50``; (e) the quickstart card vs CPU; then
+    the idle share of one profiled R=4 stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    cpu = torch.device("cpu")
+    stream = stream_inputs()
+    out = {}
+
+    base = serve_stream(dev, True, limit, stream, mixed_by="drain")
+    r1 = serve_stream(dev, True, limit, stream, replicas=1, mixed_by="drain")
+    if r1["placement"] != "inline":
+        raise AssertionError(f"R=1 placement {r1['placement']}, want inline")
+    compare_streams(dict(r1, stats={k: r1["stats"][k] for k in base["stats"]}), base,
+                    "R=1 ReplicaSet vs BatchScheduler (card)")
+    out["inline_r1"] = replica_summary(r1)
+    log(f"  (a) R=1 == BatchScheduler on the card (bitwise: {len(r1['blocks'])} blocks, "
+        f"counters, ledger)")
+
+    # no ledger limit here: the limited tenant's rejections leave this
+    # stream no drift replan of a lone stale pair, the one plan miss of a
+    # replica set that the serial planner (mc_correctness_grouped) takes;
+    # the overlapped run below keeps the limit
+    ops.reset_launch_counts()
+    card = serve_stream(dev, True, None, stream, replicas=REPLICAS, mixed_by="drain")
+    launches = {name: getattr(ops, name).launches
+                for name in ("belief_aggregate", "mc_correctness_grouped")}
+    if card["placement"] != "fused":
+        raise AssertionError(f"R={REPLICAS} default placement on one card: {card['placement']}")
+    compare_streams(card, serve_stream(cpu, True, None, stream, replicas=REPLICAS,
+                                       mixed_by="drain"), f"R={REPLICAS} fused")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the replica set")
+    if card["stats"]["replica_fused"] == 0 or card["stats"]["replica_spills"] == 0:
+        raise AssertionError(f"the R={REPLICAS} stream fused or spilled nothing: "
+                             f"{replica_summary(card)}")
+    out["fused"] = dict(replica_summary(card), launches=launches)
+    log(f"  (b) R={REPLICAS} fused, no ledger limit: card == cpu (bitwise); "
+        f"{json.dumps(out['fused'])}")
+    over = serve_stream(dev, True, limit, stream, replicas=REPLICAS, placement="overlapped",
+                        mixed_by="drain")
+    compare_streams(over, serve_stream(cpu, True, limit, stream, replicas=REPLICAS,
+                                       placement="overlapped", mixed_by="drain"),
+                    f"R={REPLICAS} overlapped")
+    out["overlapped"] = replica_summary(over)
+    log(f"      R={REPLICAS} overlapped: card == cpu (bitwise); {json.dumps(out['overlapped'])}")
+
+    inputs = tabular_inputs()
+    ops.reset_launch_counts()
+    t_over = tabular_stream(dev, "overlapped", inputs)
+    tab_launches = {name: getattr(ops, name).launches
+                    for name in ("belief_aggregate", "mc_correctness_grouped")}
+    streams = t_over.pop("streams")
+    handles = {s.cuda_stream for s in streams if s is not None}
+    default = torch.cuda.default_stream(dev).cuda_stream
+    if len(handles) != REPLICAS or default in handles:
+        raise AssertionError(f"overlapped workers hold {len(handles)} distinct side streams")
+    t_fused = tabular_stream(dev, "fused", inputs)
+    t_fused.pop("streams")
+    t_cpu = tabular_stream(cpu, "overlapped", inputs)
+    t_cpu.pop("streams")
+    compare_streams(t_over, t_cpu, "tabular overlapped, card vs cpu")
+    t_one = tabular_stream(dev, "overlapped", inputs, side_streams=False)
+    t_one.pop("streams")
+    compare_streams(t_one, t_over, "tabular overlapped, current stream vs side streams")
+    # the placements' own dispatch counters, and plan hits (counted per
+    # begin_route: one fused route reads the tables once for R workers)
+    placed = lambda st: {k: v for k, v in st.items() if k != "plan_hits"
+                         and not k.startswith(("replica_fused", "replica_overlapped"))}
+    compare_streams(dict(t_over, stats=placed(t_over["stats"])),
+                    dict(t_fused, stats=placed(t_fused["stats"])), "tabular overlapped vs fused")
+    if t_over["stats"]["degradation_failures"] == 0 or tab_launches["belief_aggregate"] == 0:
+        raise AssertionError(f"the tabular stream met no fault or launched no kernel: "
+                             f"{replica_summary(t_over)} {tab_launches}")
+    out["tabular"] = {"overlapped": replica_summary(t_over), "fused": replica_summary(t_fused),
+                      "overlapped_current_stream": replica_summary(t_one),
+                      "streams": len(handles), "launches": tab_launches}
+    log(f"  (c) tabular R={REPLICAS} with faults: {len(handles)} worker streams; card overlapped "
+        f"== card fused == cpu overlapped (bitwise); {json.dumps(out['tabular'])}")
+
+    t0 = time.perf_counter()
+    log(f"  (d) python -m repro_torch.launch.serve {' '.join(SERVE_ARGS)} --drift-after 250 "
+        f"--probe-rate 0.02")
+    online = SERVE_ARGS + ["--drift-after", "250", "--probe-rate", "0.02"]
+    on_card = time_free(run_cli("repro_torch.launch.serve", online))
+    on_cpu = time_free(run_cli("repro_torch.launch.serve", online + ["--device", "cpu"]))
+    if on_card != on_cpu:
+        raise AssertionError(f"serve CLI: card {on_card} != cpu {on_cpu}")
+    if not on_card[1].startswith(f"replica plane: R={REPLICAS} on 1 device(s) [fused]"):
+        raise AssertionError(f"serve CLI replica line: {on_card[1]}")
+    log("      card == cpu (time-free fields); --qps 5000 --slo-ms 50:")
+    run_cli("repro_torch.launch.serve",
+            SERVE_ARGS + ["--probe-rate", "0.02", "--qps", "5000", "--slo-ms", "50"])
+    quick_card = run_cli("repro_torch.quickstart", QUICKSTART_ARGS)
+    if quick_card != run_cli("repro_torch.quickstart", QUICKSTART_ARGS + ["--device", "cpu"]):
+        raise AssertionError("quickstart: card output differs from the cpu's")
+    out["cli_s"] = time.perf_counter() - t0
+    log("  (e) quickstart: card == cpu (every line)")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run = serve_stream(dev, True, limit, stream, replicas=REPLICAS, mixed_by="drain")
+    busy = sum(e.self_device_time_total for e in device_events(prof)) / 1e6
+    out["profiled"] = {"wall_s": run["wall_s"], "device_busy_s": busy,
+                       "idle_share": 1.0 - busy / run["wall_s"]}
+    log(f"  profiled R={REPLICAS} floodgates stream (fused): {json.dumps(out['profiled'])}")
     return out
 
 
@@ -1895,6 +2177,15 @@ def main() -> int:
             row["lm_scheduler_launches"] = lm["scheduler_launches"][row["name"]]
         if row["name"] in ("mc_correctness", "mc_correctness_grouped"):
             row["lifted"] = [r for r in lifted if r["name"] == row["name"]]
+    t0 = time.perf_counter()
+    log(f"[15 the replica plane and the serve CLI: R=1, R={REPLICAS} fused and overlapped, "
+        f"card vs cpu]")
+    replicas = replica_phase(dev, sched["acme_limit_usd"])
+    phases["replicas_s"] = time.perf_counter() - t0
+    log(f"[replicas] {json.dumps(replicas)}")
+    for row in kernels:
+        if row["name"] in ("belief_aggregate", "mc_correctness_grouped"):
+            row["replica_launches"] = replicas["fused"]["launches"][row["name"]]
     log(f"[earlier kernels] {json.dumps(earlier_kernels(kernels))}")
     floor = launch_floor_ms(dev)
     for row in kernels:

@@ -12,7 +12,7 @@ from .belief import (
     top2_beliefs,
 )
 from .cascade import FrugalCascade, blender_all, random_subset, single_best, topk_weighted
-from .clustering import kmeans
+from .clustering import auto_eps, dbscan, kmeans
 from .correctness import gamma, gamma_marginal, xi_exact, xi_exact_feasible, xi_pair
 from .estimation import (
     ClusterStats,
@@ -29,6 +29,8 @@ from .mc import (
     sample_pool_responses_grouped,
     theta_for,
     xi_from_responses,
+    xi_from_responses_grouped,
+    xi_marginal_grouped,
 )
 from .selection import (
     ThriftLLM,
@@ -47,10 +49,12 @@ __all__ = [
     "tie_break_argmax", "top2_beliefs",
     "gamma", "gamma_marginal", "xi_exact", "xi_exact_feasible", "xi_pair",
     "McXiEstimator", "GroupedXiEstimator", "sample_pool_responses",
-    "sample_pool_responses_grouped", "theta_for", "xi_from_responses",
+    "sample_pool_responses_grouped", "theta_for",
+    "xi_from_responses", "xi_from_responses_grouped", "xi_marginal_grouped",
     "greedy", "gamma_value_batch", "sur_greedy", "sur_greedy_many",
     "adaptive_invoke", "ThriftLLM",
     "SuccessProbEstimator", "ClusterStats", "hoeffding_interval", "wilson_interval",
-    "median_boosted_interval", "median_boost_rounds", "kmeans",
+    "median_boosted_interval", "median_boost_rounds",
+    "kmeans", "dbscan", "auto_eps",
     "FrugalCascade", "blender_all", "topk_weighted", "single_best", "random_subset",
 ]

@@ -1,7 +1,7 @@
 """Embedding clustering for query-class discovery (Section 3.1).
 
-Numpy; the PyTorch port's copy of the blocked K-means of
-``repro/core/clustering.py`` (DBSCAN waits for a later slice).
+Numpy; the PyTorch port's copy of ``repro/core/clustering.py``: blocked
+K-means, DBSCAN and its eps heuristic.
 """
 from __future__ import annotations
 
@@ -55,3 +55,52 @@ def kmeans(
         if shift < tol:
             break
     return assign, centroids
+
+
+def dbscan(x: np.ndarray, eps: float, min_pts: int = 4, block: int = 2048) -> np.ndarray:
+    """DBSCAN over euclidean distance; noise labelled -1.
+
+    Blocked neighbor computation keeps peak memory at O(block * N).
+    """
+    x = np.asarray(x, np.float64)
+    n = x.shape[0]
+    eps_sq = eps * eps
+    labels = np.full(n, -2, np.int64)  # -2 unvisited, -1 noise
+    # Precompute neighbor lists blockwise.
+    neighbors = [None] * n
+    for s in range(0, n, block):
+        e = min(s + block, n)
+        d = _pairwise_sq_dists_blocked(x[s:e], x)
+        for i in range(s, e):
+            neighbors[i] = np.flatnonzero(d[i - s] <= eps_sq)
+
+    cid = 0
+    for i in range(n):
+        if labels[i] != -2:
+            continue
+        if neighbors[i].size < min_pts:
+            labels[i] = -1
+            continue
+        labels[i] = cid
+        frontier = list(neighbors[i])
+        while frontier:
+            j = frontier.pop()
+            if labels[j] == -1:
+                labels[j] = cid
+            if labels[j] != -2:
+                continue
+            labels[j] = cid
+            if neighbors[j].size >= min_pts:
+                frontier.extend(neighbors[j])
+        cid += 1
+    return labels
+
+
+def auto_eps(x: np.ndarray, q: float = 0.15, sample: int = 1024, seed: int = 0) -> float:
+    """Heuristic eps: q-quantile of pairwise distances on a subsample."""
+    rng = np.random.default_rng(seed)
+    n = x.shape[0]
+    idx = rng.choice(n, size=min(sample, n), replace=False)
+    d = np.sqrt(_pairwise_sq_dists_blocked(x[idx], x[idx]))
+    vals = d[np.triu_indices_from(d, k=1)]
+    return float(np.quantile(vals, q)) if vals.size else 1.0

@@ -329,6 +329,11 @@ def _tables_xi_core(base_raw, base_cnt, empty, valid, theta, num_classes: int):
     return _xi_from_ties(hit0, ties, theta[:, None], num_classes)
 
 
+# the reference's public names of the two xi cores (jitted there; eager here)
+xi_from_responses_grouped = _masked_xi_core
+xi_marginal_grouped = _marginal_xi_core
+
+
 class GroupedXiEstimator:
     """The CRN estimator reshaped over G groups for the planner.
 

@@ -1,10 +1,10 @@
 """Serving runtime of the port: arm engine, ThriftLLM router, plan service,
-continuous-batching scheduler with its cost ledger, online estimation
-feedback, fault injection and degradation tracking.
+continuous-batching scheduler with its cost ledger, the R-replica serving
+plane, online estimation feedback, fault injection and degradation
+tracking.
 
 The reference's compile-cache functions have no counterpart: the port runs
-eagerly, with no ``jit`` programs to cache. The multi-replica front end
-(``ReplicaSet``, ``ReplicaWorker``) is not ported yet.
+eagerly, with no ``jit`` programs to cache.
 """
 from repro_torch.distributed.fault import ArmFaultSpec, FaultPolicy
 
@@ -17,6 +17,7 @@ from .feedback import (
     merge_counts,
 )
 from .plans import GroupPlan, PlanService
+from .replica import ReplicaSet, ReplicaWorker
 from .router import PendingRoute, RouteResult, ThriftRouter
 from .scheduler import (
     BatchScheduler,
@@ -34,6 +35,6 @@ __all__ = [
     "GroupPlan", "PlanService",
     "ThriftRouter", "RouteResult", "PendingRoute",
     "BatchScheduler", "Request", "RequestFuture", "RequestResult",
-    "BlockFuture", "CostLedger",
+    "BlockFuture", "CostLedger", "ReplicaSet", "ReplicaWorker",
     "ArmFaultSpec", "FaultPolicy",
 ]

@@ -374,6 +374,10 @@ class PendingRoute:
 
     def _finalize_jit(self) -> RouteResult:
         s_d, pred_d, beliefs_d = self._dev
+        if self._done is not None:
+            # the wave program may have run on another stream (a replica
+            # worker's): the readback below waits for it
+            torch.cuda.current_stream(s_d.device).wait_event(self._done)
         B, T, L = self.B, self.T, self.L
         stop_wave = s_d.cpu().numpy()
         beliefs = beliefs_d.cpu().numpy()

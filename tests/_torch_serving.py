@@ -55,7 +55,7 @@ def _namespace(name, data, clustering, estimation, fault, serving, **router_kw):
     )
     for attr in ("PoolEngine", "OracleArm", "BatchScheduler", "FeedbackLog", "FeedbackShard",
                  "DegradationTracker", "merge_counts", "Request", "CostLedger", "PlanService",
-                 "FaultPolicy", "ArmFaultSpec"):
+                 "FaultPolicy", "ArmFaultSpec", "ReplicaSet"):
         setattr(ns, attr, getattr(serving, attr))
     return ns
 
@@ -97,6 +97,20 @@ def tabular_pool(pkg, K=4, L=8, clusters=5, B=96, seed=3, metered=False, **route
                              for a in range(L)])
     router = pkg.ThriftRouter(engine, est, num_classes=K, **router_kw)
     return est, engine, router, qemb, qlab
+
+
+def make_pool(pkg, K=4, L=8, clusters=5, B=96, seed=3, **router_kw):
+    """``tests/test_replica.py``'s ``_make_pool``: a deterministic tabular
+    pool; rebuilding with the same seed gives a bit-identical twin.
+    Returns ``(engine, router, qemb, qlab)``."""
+    _, engine, router, qemb, qlab = tabular_pool(pkg, K=K, L=L, clusters=clusters, B=B,
+                                                 seed=seed, **router_kw)
+    return engine, router, qemb, qlab
+
+
+def pool_budget(engine, q=0.8, mult=3.0):
+    """``tests/test_replica.py``'s ``_budget``."""
+    return float(np.quantile(engine.costs, q) * mult)
 
 
 def oracle_pool(pkg, K=4, C=4, L=12, hist=120, seed=3, arm_seed=11, est_seed=4, **router_kw):

@@ -1,10 +1,11 @@
 """The port's host-side core against the JAX package: the workload generator,
-K-means, the success-probability estimator, the closed-form and exact
-correctness functions, GreedyLLM on gamma and the adaptive invocation loop.
+K-means, DBSCAN and its eps heuristic, the success-probability estimator,
+the closed-form and exact correctness functions, GreedyLLM on gamma, the
+adaptive invocation loop, and the public names of the two grouped xi cores.
 
-All of these are numpy in both packages, so every comparison is bitwise.
-The one statistical check holds the port's CRN estimator to the exact
-enumeration of xi.
+All but the xi cores are numpy in both packages; every comparison is
+bitwise. The one statistical check holds the port's CRN estimator to the
+exact enumeration of xi.
 """
 import jax
 import jax.experimental
@@ -14,14 +15,17 @@ if not hasattr(jax.experimental, "enable_x64"):      # removed in jax 0.9
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import clustering as jclu
 from repro.core import correctness as jcor
 from repro.core import estimation as jest
+from repro.core import mc as jmc
 from repro.core import selection as jsel
 from repro.data import OracleWorkload as JaxOracleWorkload
 from repro_torch.core import clustering as tclu
 from repro_torch.core import correctness as tcor
+from repro_torch import core as tcore
 from repro_torch.core import estimation as tsp
 from repro_torch.core import prng
 from repro_torch.core import selection as tsel
@@ -152,3 +156,58 @@ def test_adaptive_invoke_and_answer_bitwise(use_rng):
     assert got.prediction == want.prediction
     np.testing.assert_array_equal(got.used, want.used)
     np.testing.assert_array_equal(got.log_beliefs, want.log_beliefs)
+
+
+def test_dbscan_and_auto_eps_bitwise():
+    """``tests/test_estimation_data.py``'s cases (two blobs and an outlier;
+    a positive eps) on both packages, plus DBSCAN at the eps the heuristic
+    picks on a workload's embeddings."""
+    rng = np.random.default_rng(2)
+    a = rng.normal(0, 0.1, (40, 2))
+    b = rng.normal(5, 0.1, (40, 2)) + np.array([5, 0])
+    x = np.concatenate([a, b, np.array([[50.0, 50.0]])])
+    labels = tclu.dbscan(x, eps=1.0, min_pts=4)
+    np.testing.assert_array_equal(labels, jclu.dbscan(x, eps=1.0, min_pts=4))
+    assert labels[-1] == -1 and labels[0] != labels[40]
+    assert len(set(labels[:40])) == 1 and len(set(labels[40:80])) == 1
+    y = np.random.default_rng(3).normal(0, 1, (100, 4))
+    assert tclu.auto_eps(y) == jclu.auto_eps(y) > 0
+    _, emb, _ = JaxOracleWorkload(num_classes=4, num_clusters=4, num_arms=5,
+                                  seed=1).response_table(300, seed=7)
+    eps = tclu.auto_eps(emb, q=0.05, sample=200, seed=4)
+    assert eps == jclu.auto_eps(emb, q=0.05, sample=200, seed=4)
+    np.testing.assert_array_equal(tclu.dbscan(emb, eps, min_pts=5, block=64),
+                                  jclu.dbscan(emb, eps, min_pts=5, block=64))
+
+
+@pytest.mark.parametrize("seed,G,L,K", [(0, 3, 5, 3), (1, 2, 8, 19)])
+def test_public_grouped_xi_names_bitwise(seed, G, L, K):
+    """``xi_from_responses_grouped`` (xi of arbitrary masks) and
+    ``xi_marginal_grouped`` (xi of a set plus each arm) under the
+    reference's public names, on the reference estimator's own draws."""
+    rng = np.random.default_rng(seed)
+    ps = rng.uniform(0.3, 0.95, (G, L))
+    ref = jmc.GroupedXiEstimator(jax.random.key(seed), ps, K, rng.integers(150, 600, G))
+    masks = (rng.random((G, 4, L)) < 0.5).astype(np.float32)
+    T = ref.responses.shape[1]
+    raw = np.zeros((G, T, K), np.float32)
+    cnt = np.zeros((G, T, K), np.int32)
+    for g in range(G):
+        ref._accumulate(raw[g], cnt[g], g, [L - 1, 0])
+    with jmc.enable_x64():
+        want_x = np.asarray(jmc.xi_from_responses_grouped(
+            ref.responses, masks, ref.log_weights, ref.empty, ref.valid, ref.theta_f,
+            num_classes=K))
+        want_m = np.asarray(jmc.xi_marginal_grouped(
+            ref.responses_t, raw, cnt, ref.log_weights, ref.empty, ref.valid, ref.theta_f,
+            num_classes=K))
+    t = lambda a: torch.as_tensor(np.asarray(a))
+    got_x = tcore.xi_from_responses_grouped(
+        t(ref.responses), t(masks), t(ref.log_weights), t(ref.empty), t(ref.valid),
+        t(ref.theta_f), num_classes=K)
+    got_m = tcore.xi_marginal_grouped(
+        t(ref.responses_t), t(raw), t(cnt), t(ref.log_weights), t(ref.empty), t(ref.valid),
+        t(ref.theta_f), num_classes=K)
+    assert got_x.dtype == got_m.dtype == torch.float64
+    np.testing.assert_array_equal(got_x.numpy(), want_x)
+    np.testing.assert_array_equal(got_m.numpy(), want_m)

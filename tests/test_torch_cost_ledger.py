@@ -1,13 +1,13 @@
 """The port's per-tenant CostLedger against the JAX package's:
-``tests/test_cost_ledger.py``'s properties (all but the ReplicaSet ones,
-which have no counterpart yet) on both packages from the same seeds, plus
-a snapshot taken on one package and restored on the other.
+``tests/test_cost_ledger.py``'s properties on both packages from the same
+seeds, the ReplicaSet ones included, plus a snapshot taken on one package
+and restored on the other.
 
 Each example asserts the reference's own invariants on the port — spend
 conservation per request and per arm (faulted runs included), tenant
 totals independent of submission order, hard budgets never exceeded, the
 token-bucket rate limit on an injectable clock, snapshot/restore and the
-restart reconciliation — and that the port's per-request results and
+restart reconciliation, one ledger shared by an R=3 ``ReplicaSet`` — and that the port's per-request results and
 ledger state equal the reference's bitwise.
 """
 import jax
@@ -371,3 +371,70 @@ def test_snapshot_crosses_packages(src, dst):
         finished[pkg.name] = (blk, _ledger_state(led))
     assert_blocks_equal(finished[dst.name][0], finished[src.name][0])
     assert finished[dst.name][1] == finished[src.name][1]
+
+
+def test_replica_set_settles_shared_ledger():
+    """One CostLedger shared across an R=3 ReplicaSet: per-tenant spend
+    equals the block's realized charges, every replica's reservations are
+    released, and per-arm attribution still sums to spend."""
+    out = {}
+    for pkg in PACKAGES:
+        engine, router = _POOLS[pkg.name]
+        rng = np.random.default_rng(23)
+        n = 72
+        rows = rng.integers(0, _QEMB.shape[0], size=n)
+        budgets = rng.choice(_TIERS, size=n)
+        tenants = rng.choice(_TENANTS, size=n)
+        ledger = pkg.CostLedger(num_arms=len(engine.arms))
+        rset = pkg.ReplicaSet(router, replicas=3, max_batch=16, max_wait_s=0.0,
+                              ledger=ledger, budget_tiers=_TIERS.tolist())
+        blk = rset.submit_many(rows, _QEMB[rows], budgets, tenant=tenants)
+        rset.drain()
+        assert blk.done()
+        assert np.isclose(ledger.total_spent, float(blk.costs.sum()), rtol=1e-12, atol=1e-18)
+        assert ledger.total_reserved == 0.0
+        for name, ent in ledger.tenants().items():
+            sel = tenants == name
+            assert ent["requests"] == int(sel.sum())
+            assert np.isclose(ent["spent"], float(blk.costs[sel].sum()), rtol=1e-12, atol=1e-18)
+            assert np.isclose(ent["by_arm"].sum(), ent["spent"], rtol=1e-12, atol=1e-18)
+        assert rset.stats["ledger_rejected"] == 0
+        out[pkg.name] = {"blocks": [blk], "ledger": _ledger_state(ledger),
+                         "stats": rset.stats}
+    _same(out)
+    assert out["port"]["stats"].keys() == out["ref"]["stats"].keys()
+
+
+def test_replica_set_reconcile_releases_restored_orphans():
+    """The set-wide reconcile: a ReplicaSet restarted onto a restored
+    ledger releases the dead process's reservations in one pass and then
+    serves the stream inside the reclaimed headroom."""
+    out = {}
+    for pkg in PACKAGES:
+        engine, router = _POOLS[pkg.name]
+        rng = np.random.default_rng(31)
+        rows = rng.integers(0, _QEMB.shape[0], size=48)
+        budgets = rng.choice(_TIERS, size=48)
+        limit = float(_TIERS[-1]) * 48
+        ledger = pkg.CostLedger(num_arms=len(engine.arms))
+        ledger.set_limit("acme", limit)
+        sched = _sched(pkg, ledger=ledger, max_batch=16)
+        sched.submit_many(rows, _QEMB[rows], budgets, tenant="acme")
+        sched._dispatch_batch()
+        assert ledger.tenant("acme")["reserved"] > 0.0
+        led2 = pkg.CostLedger.restore(json.loads(json.dumps(ledger.snapshot())))
+        rset = pkg.ReplicaSet(router, replicas=3, max_batch=16, max_wait_s=0.0,
+                              ledger=led2, budget_tiers=_TIERS.tolist())
+        released = rset.reconcile_ledger()
+        assert released > 0
+        assert led2.tenant("acme")["reserved"] == 0.0
+        blk = rset.submit_many(rows, _QEMB[rows], budgets, tenant="acme")
+        rset.drain()
+        assert blk.done()
+        ent = led2.tenant("acme")
+        assert ent["spent"] + ent["reserved"] <= limit + 1e-12
+        assert ent["reserved"] == 0.0
+        out[pkg.name] = {"blocks": [blk], "ledger": _ledger_state(led2),
+                         "released": released}
+    _same(out)
+    assert out["port"]["released"] == out["ref"]["released"]

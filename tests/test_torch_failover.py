@@ -1,12 +1,13 @@
 """The port's fault plane against the JAX package's: ``tests/test_failover.py``'s
-scenarios (all but the jit-recompile guard and the replica set, which have
-no counterpart yet) run on both packages from the same seeds.
+scenarios (all but the jit-recompile guard: the port has no jit) run on
+both packages from the same seeds.
 
 Each case asserts the reference's own contract on the port — the device
 wave plane and the compacting host plane agree under every fault schedule,
 a zero-rate policy changes nothing, a total outage degrades gracefully,
 failure evidence drift-replans only the observing clusters and probes
-readmit a recovered arm — and that the port's routes, fault evidence,
+readmit a recovered arm, an R=3 ``ReplicaSet`` serves through every fault
+schedule — and that the port's routes, fault evidence,
 scheduler results and estimator states equal the reference's bitwise (f64
 planes).
 """
@@ -316,3 +317,43 @@ def test_fault_policy_determinism_and_spec():
             got, want = getattr(p, method)(*args), getattr(policies["ref"], method)(*args)
             assert got.dtype == want.dtype
             np.testing.assert_array_equal(got, want, err_msg=method)
+
+
+@pytest.mark.parametrize("kind,rates", FAULT_MATRIX)
+def test_replica_set_serves_through_faults(kind, rates):
+    """Every fault schedule, served through an R=3 ReplicaSet (sharded
+    admission, fused dispatch): the stream completes with failover'd
+    predictions, the failure evidence reaches the per-replica degradation
+    trackers, and a follow-up fold takes every label; the port's blocks,
+    counters, fold report and estimator state equal the reference's."""
+    out = {}
+    for pkg in PACKAGES:
+        est, engine, router, qemb, qlab = tabular_pool(pkg)
+        budget = _budget(engine)
+        B = qemb.shape[0]
+        policy = pkg.FaultPolicy(len(engine.arms), 4, seed=11)
+        order = np.argsort(-np.bincount(
+            router.route_batch(np.arange(B), qemb, budget).schedule[:, 0].clip(0),
+            minlength=len(engine.arms)))
+        for pos, kw in rates.items():
+            policy.set_arm(int(order[pos]), **kw)
+        engine.fault_policy = policy
+        rset = pkg.ReplicaSet(router, replicas=3, max_batch=16, max_wait_s=0.0,
+                              feedback=True)
+        blk = rset.submit_many(np.arange(B), qemb, budget)
+        rset.drain()
+        assert blk.done() and (blk.predictions >= 0).all()
+        st = rset.stats
+        assert st["completed"] == B
+        if kind != "degrade":
+            assert st["degradation_failures"] > 0, kind
+        assert st["degradation_routes"] > 0
+        assert rset.record_outcomes(blk.request_ids, qlab) == B
+        report = rset.apply_feedback()
+        assert report.labels == B
+        out[pkg.name] = (blk, rset.stats, (report.labels, sorted(report.clusters),
+                                           sorted(report.drifted)), estimator_state(est))
+    got, want = out["port"], out["ref"]
+    assert_blocks_equal(got[0], want[0], kind)
+    assert got[1] == want[1]
+    assert got[2:] == want[2:]

@@ -34,21 +34,53 @@ def test_port_files_exist():
         "src/repro_torch/core/cascade.py", "src/repro_torch/core/belief.py",
         "src/repro_torch/budget_sweep.py", "src/repro_torch/distributed/fault.py",
         "src/repro_torch/serving/feedback.py", "src/repro_torch/serving/scheduler.py",
+        "src/repro_torch/serving/replica.py", "src/repro_torch/distributed/sharding.py",
+        "src/repro_torch/launch/__init__.py", "src/repro_torch/launch/serve.py",
+        "src/repro_torch/quickstart.py",
     ):
         assert want in names
 
 
 def test_serving_exports_the_front_door():
     """``repro_torch.serving`` exports what the reference's serving package
-    does, but the replica set and the compile cache."""
+    does, but the compile cache; ``repro_torch.distributed`` exports
+    ``replica_devices``."""
+    import repro_torch.distributed as distributed
     import repro_torch.serving as serving
 
-    for name in ("BatchScheduler", "CostLedger", "Request", "RequestFuture", "RequestResult",
+    assert "replica_devices" in distributed.__all__ and hasattr(distributed, "replica_devices")
+    for name in ("ReplicaSet", "ReplicaWorker",
+                 "BatchScheduler", "CostLedger", "Request", "RequestFuture", "RequestResult",
                  "BlockFuture", "FeedbackLog", "FeedbackReport", "FeedbackShard",
                  "DegradationTracker", "merge_counts", "ArmFaultSpec", "FaultPolicy",
                  "USD_PER_FLOP", "LMArm", "OracleArm", "PoolEngine", "GroupPlan", "PlanService",
                  "ThriftRouter", "RouteResult", "PendingRoute"):
         assert name in serving.__all__ and hasattr(serving, name), name
+
+
+def test_core_exports_the_reference_names():
+    """``repro_torch.core.__all__`` is ``repro.core.__all__`` (written out
+    here: this file imports neither package's JAX side)."""
+    import repro_torch.core as core
+
+    want = {
+        "Arm", "QueryClass", "SelectionResult", "InvocationResult", "clip_probs",
+        "log_weight", "empty_log_belief", "aggregate_log_beliefs", "aggregate_predict",
+        "aggregate_log_beliefs_batch", "predict_batch", "predict_from_beliefs",
+        "tie_break_argmax", "top2_beliefs",
+        "gamma", "gamma_marginal", "xi_exact", "xi_exact_feasible", "xi_pair",
+        "McXiEstimator", "GroupedXiEstimator", "sample_pool_responses",
+        "sample_pool_responses_grouped", "theta_for",
+        "xi_from_responses", "xi_from_responses_grouped", "xi_marginal_grouped",
+        "greedy", "gamma_value_batch", "sur_greedy", "sur_greedy_many",
+        "adaptive_invoke", "ThriftLLM",
+        "SuccessProbEstimator", "ClusterStats", "hoeffding_interval", "wilson_interval",
+        "median_boosted_interval", "median_boost_rounds",
+        "kmeans", "dbscan", "auto_eps",
+        "FrugalCascade", "blender_all", "topk_weighted", "single_best", "random_subset",
+    }
+    assert set(core.__all__) == want
+    assert all(hasattr(core, name) for name in want)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
