@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path — the router, the continuous-
 batching front door, the replica plane and the serve CLI — GreedyLLM and
-the paper's baselines on one CUDA card and check them.
+the paper's baselines, and its training path (gradients through the model
+kernels, the train step, the training CLI with restart, the
+train-calibrate-serve pipeline) on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -56,7 +58,9 @@ Phases:
    projection, dt in f32 as the block gives it, no initial state: h_last
    within 3e-4, the bf16 y within 3e-4 plus one rounding to nearest
    (2^-8 |y|) of the plain version's unrounded f32 y — and in f32 at (64, 127, 8192, 16) and (2, 37,
-   96, 8) with nonzero initial states (3e-4);
+   96, 8) with nonzero initial states (3e-4); ``flash_attention`` also at
+   head dims no kernel is built for (the wrapper zero-pads them to the
+   next template's): hd 8, 12 and 24 in bf16 (2e-2) and f32 (2e-5);
 8. models — smollm-135m, recurrentgemma-9b and falcon-mamba-7b at full
    width in f32, cut to one pattern unit of depth (1, 3 and 1 layers) so
    the CPU side takes seconds: the same weights forward on the card and on
@@ -161,7 +165,43 @@ Phases:
     exactly what it prints with ``--device cpu``. A ``[replicas]`` line
     prints qps and p50/p99 per placement (R=1 inline, R=4 fused and
     overlapped, the tabular streams), the launches, and the idle share of
-    one profiled R=4 floodgates stream.
+    one profiled R=4 floodgates stream;
+16. training — (a) each model kernel's autograd Function
+    (``ops.KernelFunction``) against the plain version's own autograd on
+    the same CUDA tensors and upstream gradient: ``flash_attention`` bf16
+    at B=8 S=512 H=9 G=3 hd=64 (smollm-135m's training shape) and f32 at hd
+    8, 12 and 24, ``rglru_scan`` and ``mamba_scan`` at the SMOKE configs'
+    shapes (B=4, S=32) and ``mamba_scan`` at phase 7's bf16 path case with
+    B and C strided views of one projection: one launch by the counter, the
+    forward's outputs within phase 7's tolerances of the plain version's
+    (the bf16 ones against the plain version on f32 copies), and input
+    gradients equal bitwise; then ``flash_attention`` at the training
+    shape timed forward (beside its bound, the plain version and
+    ``scaled_dot_product_attention``) and backward (its Function's backward
+    beside SDPA's); (b) smollm, recurrentgemma and
+    falcon-mamba at their SMOKE configs in f32, the same torch-seeded
+    weights trained 5 steps (4 x 32 tokens) on the card and on the CPU:
+    losses within rel 1e-4 at every step, the three model kernels launched
+    on the card, and every parameter's gradient on the card finite and
+    non-zero; (c) smollm-135m at full width in bf16 with remat, 30 steps of
+    8 x 512 ``make_token_task(K=4, seq_len=512, vocab=512)`` batches: the
+    mean loss of the last 5 steps below the first 5's, ``flash_attention``
+    launched exactly layers x steps x 2 (forward and remat recompute); a
+    ``[train]`` line prints the median step ms, tokens/s, peak memory and
+    one profiled step's idle share and device split (flash forward, the
+    attention backward — every kernel under ``KernelFunction``'s backward
+    range —, cuBLAS outside it, other), one checkpoint save and restore of
+    the trained state timed, beside the card's name and power limit; (d)
+    ``python -m repro_torch.launch.train --arch smollm-135m --steps 20
+    --save-every 10`` as a subprocess, then again to 30 steps, which must
+    print ``resumed from step 10`` (each run's wall clock split at its step
+    loop); (e) ``python -m
+    repro_torch.train_and_serve --steps 60`` on the card, then with
+    ``--device cpu``: the arms' costs equal, and on the card
+    ``tests/test_system.py``'s asserts hold (the largest arm beats the
+    smallest, the ensemble at 100x the cheapest cost scores at least the
+    best arm - 0.08, 1.2x scores above 1/K, every cost within its budget,
+    every arm's loss falls by more than 0.25).
 
 Two lines before the last is a JSON object listing every kernel with its
 launches, error, bound and times — ``ms``/``plain_ms``/``library_ms`` are
@@ -177,7 +217,10 @@ model kernel's ``launches`` phase 9, ``mc_correctness``'s phase 11; the
 three router kernels' ``wide_pool_launches`` count phase 13, the two
 router kernels' ``scheduler_launches`` phase 14's ``use_kernel`` stream
 and their ``replica_launches`` phase 15 (b)'s card stream,
-and ``lm_scheduler_launches`` the LM arms' scheduler run in phase 9; the
+and ``lm_scheduler_launches`` the LM arms' scheduler run in phase 9, and
+the three model kernels' ``train_launches`` phase 16 (b) (SMOKE, f32) and
+(c) (smollm-135m, bf16), and the ``flash_attention`` row's
+``training_shape`` its phase-16 times; the
 two ``mc_correctness`` rows carry ``lifted``, their phase-3 cases past
 the limits of earlier versions, timed.
 ``flash_attention`` is listed at the
@@ -198,6 +241,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -836,7 +880,9 @@ def mamba_path_inputs(B, S, Din, N, R, seed, dev):
 # (label, B, S, T, H, G, hd, window, dtype, atol): the two path shapes in
 # bf16, bf16 at ragged lengths, a small window, hd 16 / 32 / 128 and
 # query / kv head ratios 1, 3 and 16, then f32 with and without windows,
-# at hd 64 and 256
+# at hd 64 and 256; then head dims that are no template's (the wrapper
+# zero-pads them): hd 8, 12 and 24 in bf16 and f32, with and without a
+# window
 FLASH_CASES = (
     ("smollm path", 64, 127, 127, 9, 3, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
     ("recurrentgemma path", 64, 127, 127, 16, 1, 256, 2048, torch.bfloat16, FLASH_BF16_ATOL),
@@ -848,6 +894,12 @@ FLASH_CASES = (
     ("f32", 2, 127, 127, 4, 2, 64, 0, torch.float32, FLASH_F32_ATOL),
     ("f32", 2, 127, 127, 4, 2, 64, 48, torch.float32, FLASH_F32_ATOL),
     ("f32", 1, 300, 300, 16, 1, 256, 64, torch.float32, FLASH_F32_ATOL),
+    ("hd 8", 2, 45, 45, 6, 2, 8, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("hd 12, window 7", 2, 45, 45, 4, 2, 12, 7, torch.bfloat16, FLASH_BF16_ATOL),
+    ("hd 24", 2, 70, 70, 4, 1, 24, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("hd 8", 2, 45, 45, 6, 2, 8, 7, torch.float32, FLASH_F32_ATOL),
+    ("hd 12", 2, 45, 45, 4, 2, 12, 0, torch.float32, FLASH_F32_ATOL),
+    ("hd 24", 2, 70, 70, 4, 1, 24, 7, torch.float32, FLASH_F32_ATOL),
 )
 RGLRU_CASES = ((64, 127, 4096), (3, 37, 200))
 MAMBA_CASES = ((64, 127, 8192, 16), (2, 37, 96, 8))
@@ -1981,6 +2033,486 @@ def replica_phase(dev, limit: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: training
+# ---------------------------------------------------------------------------
+
+SMOKE_TRAIN = (4, 32, 5)          # (b): batch, sequence, steps of each SMOKE family
+TRAIN_LOSS_RTOL = 1e-4            # (b): f32 losses, card vs CPU
+FULL_TRAIN = (8, 512, 30)         # (c): smollm-135m's batch, sequence, steps
+TRAIN_CLI = ["--arch", "smollm-135m", "--save-every", "10"]
+PIPELINE_STEPS = 60               # (e): train_and_serve --steps
+BACKWARD_RANGE = "flash_attention_ref backward"   # ops.KernelFunction's profiler range
+
+
+def input_grads(fn, inputs, upstream):
+    """``(outputs, grads)``: ``fn(*inputs)``'s outputs (a tuple, detached) and
+    the gradients of its first output for ``upstream`` with respect to every
+    float input, each a fresh leaf."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    grads = torch.autograd.grad(out[0], leaves, upstream)
+    return tuple(o.detach() for o in out), grads
+
+
+def split_bc(fn, R: int, N: int):
+    """``fn(x, dt, A, B, C, D, None)`` over B and C split from one (B, S,
+    R + 2N) projection, so their gradient lands on the projection as the
+    SSM block's does."""
+    def run(x, dt, A, proj, D):
+        _, Bm, Cm = proj.split([R, N, N], dim=-1)
+        return fn(x, dt, A, Bm, Cm, D, None)
+    return run
+
+
+def autograd_phase(dev) -> dict:
+    """(a) Each model kernel's autograd Function against the plain version's
+    autograd on the same CUDA tensors and upstream gradient: one launch,
+    the forward's outputs within the kernel's tolerance of the plain
+    version's (phase 7's), input gradients bitwise."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops, ref
+
+    f32 = lambda args: tuple(a.float() for a in args)
+    x_f32 = lambda args: (args[0].float(),) + tuple(args[1:])
+    B, S, _ = SMOKE_TRAIN
+    # (kernel, label, Function, plain, inputs, the plain forward's inputs,
+    # atol, rel): the forward holds |out - plain| <= atol + rel |plain| on
+    # bf16 outputs (one rounding to nearest) and <= atol on f32 ones
+    args = flash_inputs(8, 512, 512, 9, 3, 64, torch.bfloat16, seed=60, dev=dev)
+    cases = [("flash_attention", "bf16 B=8 S=512 H=9 G=3 hd=64 (smollm-135m training)",
+              ops.flash_attention, ref.flash_attention_ref, args, f32(args), FLASH_BF16_ATOL, 0.0)]
+    for i, hd in enumerate((8, 12, 24)):
+        args = flash_inputs(2, 77, 77, 4, 2, hd, torch.float32, seed=61 + i, dev=dev)
+        cases.append(("flash_attention", f"f32 B=2 S=77 H=4 G=2 hd={hd}", ops.flash_attention,
+                      ref.flash_attention_ref, args, args, FLASH_F32_ATOL, 0.0))
+    rg = get_smoke_config("recurrentgemma-9b")
+    args = rglru_inputs(B, S, rg.rnn_width, seed=65, dev=dev)
+    cases.append(("rglru_scan", f"SMOKE B={B} S={S} D={rg.rnn_width}", ops.rglru_scan,
+                  ref.rglru_scan_ref, args, args, RGLRU_ATOL, 0.0))
+    fm = get_smoke_config("falcon-mamba-7b")
+    N, R = fm.ssm_state, fm.ssm_dt_rank
+    x, dt, A, Bm, _, D, _ = mamba_path_inputs(B, S, fm.d_inner, N, R, seed=66, dev=dev)
+    args = (x.float(), dt, A, Bm._base.float(), D)
+    cases.append(("mamba_scan", f"SMOKE B={B} S={S} Din={fm.d_inner} N={N} f32, B/C split",
+                  split_bc(ops.mamba_scan, R, N), split_bc(ref.mamba_scan_ref, R, N),
+                  args, args, MAMBA_ATOL, 0.0))
+    Bp, Sp, Dp, Np, Rp = MAMBA_PATH
+    x, dt, A, Bm, _, D, _ = mamba_path_inputs(Bp, Sp, Dp, Np, Rp, seed=67, dev=dev)
+    args = (x, dt, A, Bm._base, D)
+    cases.append(("mamba_scan", f"phase 7's path case B={Bp} S={Sp} Din={Dp} N={Np} bf16 x/B/C, "
+                  f"strided B/C", split_bc(ops.mamba_scan, Rp, Np),
+                  split_bc(ref.mamba_scan_ref, Rp, Np), args, x_f32(args), MAMBA_ATOL,
+                  BF16_ROUNDING))
+    out = []
+    for i, (name, label, fn, plain, args, plain_args, atol, rel) in enumerate(cases):
+        y = plain(*args)
+        y = y[0] if isinstance(y, tuple) else y
+        gen = torch.Generator(device=dev).manual_seed(70 + i)
+        upstream = _randn(y.shape, gen, dev).to(y.dtype)
+        _, want = input_grads(plain, args, upstream)
+        with torch.no_grad():
+            fwd_want = plain(*plain_args)
+        fwd_want = fwd_want if isinstance(fwd_want, tuple) else (fwd_want,)
+        counter = getattr(ops, name)
+        before = counter.launches
+        fwd, got = input_grads(fn, args, upstream)
+        torch.cuda.synchronize()
+        launches = counter.launches - before
+        fwd_err = max(float((o.float() - w.float()).abs().max()) for o, w in zip(fwd, fwd_want))
+        fwd_ok = all(bool(((o.float() - w.float()).abs()
+                           <= atol + (rel if o.dtype == torch.bfloat16 else 0.0) * w.abs()).all())
+                     and bool(torch.isfinite(o).all()) for o, w in zip(fwd, fwd_want))
+        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        log(f"  {name} {label}: forward launches {launches}, forward max_abs_err {fwd_err:.3g} "
+            f"(atol {atol}{f' + {rel:.3g} |y| on bf16' if rel else ''}: {fwd_ok}), input "
+            f"gradients bitwise the plain version's: {bitwise}")
+        if launches != 1 or not fwd_ok or not bitwise or not finite:
+            raise AssertionError(f"{name} autograd at {label}: launches {launches}, forward "
+                                 f"err {fwd_err} ok {fwd_ok}, bitwise {bitwise}, finite {finite}")
+        out.append({"kernel": name, "case": label, "launches": launches,
+                    "forward_max_abs_err": fwd_err, "bitwise": bitwise})
+        del got, want, fwd, fwd_want
+    torch.cuda.empty_cache()
+    return {"cases": out}
+
+
+def flash_training_times(dev) -> dict:
+    """``flash_attention`` at smollm-135m's training shape (B=8 S=512 H=9 G=3
+    hd=64 bf16): the kernel's forward beside its bound, the plain version
+    and ``scaled_dot_product_attention``; and one backward of its autograd
+    Function (the plain version recomputed and differentiated) beside
+    SDPA's backward, each on a graph kept for repeated backwards."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    args = flash_inputs(8, 512, 512, 9, 3, 64, torch.bfloat16, seed=95, dev=dev)
+    b_ms, b_by = bound_ms(*flash_bound(args[0], args[1], 0), BF16_OPS_PER_S)
+    gen = torch.Generator(device=dev).manual_seed(96)
+    up = _randn(args[0].shape, gen, dev).to(torch.bfloat16)
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    ours = ops.flash_attention(*leaves)
+    tl = [a.detach().clone().transpose(1, 2).requires_grad_() for a in args]
+    lib = F.scaled_dot_product_attention(*tl, is_causal=True, enable_gqa=True)
+    lib_up = up.transpose(1, 2)
+    out = {"shape": "B=8 S=512 H=9 G=3 hd=64 window=0 bf16 (smollm-135m training)",
+           "bound_ms": b_ms, "bound_by": b_by}
+    for key, fn, n, launches in (
+            ("ms", lambda: ops.flash_attention(*args), 20, 1),
+            ("plain_ms", lambda: ref.flash_attention_ref(*args), 5, 0),
+            ("library_ms", lambda: F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in args), is_causal=True, enable_gqa=True), 20, 0),
+            ("backward_ms", lambda: torch.autograd.grad(ours, leaves, up, retain_graph=True), 5, 0),
+            ("library_backward_ms",
+             lambda: torch.autograd.grad(lib, tl, lib_up, retain_graph=True), 5, 0)):
+        out[key], out[key.replace("ms", "source")] = device_ms(fn, n=n, launches=launches)
+    return out
+
+
+def smoke_train_phase(dev) -> dict:
+    """(b) The three SMOKE families in f32, the same torch-seeded weights,
+    trained on the card and on the CPU: losses per step within rel 1e-4,
+    and on the card every parameter's gradient finite and non-zero."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.training import OptimizerConfig, init_train_state, make_train_step
+
+    B, S, steps = SMOKE_TRAIN
+    out = {}
+    ops.reset_launch_counts()
+    card_launches = dict.fromkeys(MODEL_KERNELS, 0)
+    for i, arch in enumerate(ARCHS):
+        cfg = get_smoke_config(arch)
+        rng = np.random.default_rng(80 + i)
+        batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))) for _ in range(steps)]
+        losses = {}
+        for where, side in ((dev, "card"), (torch.device("cpu"), "cpu")):
+            model = LM(cfg, device="cpu", seed=90 + i).to(where)
+            params, opt = init_train_state(model)
+            step = make_train_step(model, OptimizerConfig(lr=1e-3, warmup_steps=1))
+            before = {k: getattr(ops, k).launches for k in MODEL_KERNELS}
+            losses[side] = []
+            for toks in batches:
+                params, opt, m = step(params, opt, {"tokens": toks})
+                losses[side].append(float(m["loss"]))
+            if side == "card":
+                for k in MODEL_KERNELS:
+                    card_launches[k] += getattr(ops, k).launches - before[k]
+                loss, _ = model.loss({"tokens": batches[0]})
+                grads = torch.autograd.grad(loss, list(params.values()))
+                bad = [n for n, g in zip(params, grads)
+                       if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
+                if bad:
+                    raise AssertionError(f"{arch}: parameters without a finite non-zero gradient "
+                                         f"on the card: {bad}")
+                n_params = len(grads)
+            del model, params, opt
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
+        log(f"  {arch} SMOKE f32, {steps} steps of {B}x{S}: losses card "
+            f"{[round(v, 6) for v in losses['card']]}, max rel vs cpu {rel:.3g}; "
+            f"{n_params} parameters, every gradient finite and non-zero on the card")
+        if rel > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{arch}: card losses differ from the cpu's by rel {rel}")
+        out[arch] = {"card_losses": losses["card"], "cpu_losses": losses["cpu"], "max_rel": rel,
+                     "params_with_grad": n_params}
+    if min(card_launches.values()) <= 0:
+        raise AssertionError(f"a model kernel did not launch in SMOKE training: {card_launches}")
+    out["launches"] = card_launches
+    log(f"  model kernel launches in (b): {card_launches}")
+    return out
+
+
+def range_kernels(evt) -> list:
+    """(name, device us) of every kernel launched under a profiler event."""
+    found = [(k.name, k.duration) for k in evt.kernels]
+    for child in evt.cpu_children:
+        found += range_kernels(child)
+    return found
+
+
+def profiled_step(run) -> dict:
+    """Two calls of ``run`` under ``torch.profiler``, each between spin
+    kernels after a pause. The first traces the card only: its wall ms,
+    device busy ms and idle share. The second traces the host too, for the
+    split of device ms into the flash kernel's forward, the attention
+    backward (every kernel under ``ops.KernelFunction``'s backward range),
+    cuBLAS outside that range and the rest, with the largest kernels of the
+    rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def trace(activities):
+        torch.cuda.synchronize()
+        time.sleep(PAUSE_S)
+        with profile(activities=activities) as prof:
+            for _ in range(SENTINELS):
+                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            for _ in range(SENTINELS):
+                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        # kernel rows: no spin kernels, and not the backward range's own row
+        # on the device timeline (an annotation spanning kernels, not one)
+        rows = [e for e in device_events(prof)
+                if "spin_kernel" not in e.key and e.key != BACKWARD_RANGE]
+        return prof, wall_ms, rows
+
+    _, wall_ms, rows = trace([ProfilerActivity.CUDA])
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    prof, host_wall_ms, rows = trace([ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    gemm = lambda name: any(m in name.lower() for m in GEMM_MARKS)
+    kernels = {e.key: (e.self_device_time_total / 1e3, e.count) for e in rows}
+    flash_fwd = sum(ms for k, (ms, _) in kernels.items() if "flash_attention_kernel" in k)
+    in_range = [kv for e in prof.events()
+                if e.name == BACKWARD_RANGE and e.device_type == DeviceType.CPU
+                for kv in range_kernels(e)]
+    attn_bwd = sum(us for _, us in in_range) / 1e3
+    gemm_in_range = sum(us for name, us in in_range if gemm(name)) / 1e3
+    cublas = sum(ms for k, (ms, _) in kernels.items() if gemm(k)) - gemm_in_range
+    traced_busy = sum(ms for ms, _ in kernels.values())
+    rest = sorted(((ms, n, k) for k, (ms, n) in kernels.items()
+                   if not gemm(k) and "flash_attention_kernel" not in k), reverse=True)
+    return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "split_trace": {"wall_ms": host_wall_ms, "device_ms": traced_busy,
+                            "flash_forward_ms": flash_fwd, "attention_backward_ms": attn_bwd,
+                            "cublas_ms": cublas,
+                            "other_ms": traced_busy - flash_fwd - attn_bwd - cublas,
+                            "kernel_launches": sum(n for _, n in kernels.values()),
+                            "backward_ranges": sum(e.name == BACKWARD_RANGE
+                                                   and e.device_type == DeviceType.CPU
+                                                   for e in prof.events()),
+                            "largest_kernels_outside_gemm_and_flash": [
+                                {"kernel": k[:120], "ms": ms, "count": n} for ms, n, k in rest[:8]]}}
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn`` ending in a synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def full_train_phase(dev) -> dict:
+    """(c) smollm-135m at full width in bf16 (remat on), 30 steps of 8 x 512
+    token-task batches: the loss falls, ``flash_attention`` launches layers
+    x steps x 2 (forward and remat recompute), and a ``[train]`` line."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_token_task
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.training import (OptimizerConfig, adamw_update, init_train_state,
+                                      make_train_step)
+
+    B, S, steps = FULL_TRAIN
+    cfg = get_config("smollm-135m")
+    data = make_token_task(4, S, 512, n=B * steps, seed=0)["tokens"]
+    batches = [torch.from_numpy(data[i * B:(i + 1) * B]).to(dev) for i in range(steps)]
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev, seed=5)
+    params, opt = init_train_state(model)
+    opt_cfg = OptimizerConfig(lr=3e-3, warmup_steps=5, total_steps=steps)
+    step = make_train_step(model, opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    losses, step_ms = [], []
+    for toks in batches:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, {"tokens": toks})
+        losses.append(float(m["loss"]))                      # reads back: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: getattr(ops, k).launches for k in MODEL_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = cfg.num_layers * steps * (2 if cfg.remat else 1)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"  smollm-135m bf16 remat={cfg.remat}, {steps} steps of {B}x{S}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (first 5 mean {first:.4f}, last 5 {last:.4f}); "
+        f"flash_attention launches {launches['flash_attention']} (want {want})")
+    if not (last < first and all(np.isfinite(losses))):
+        raise AssertionError(f"smollm-135m training loss did not fall: {losses}")
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"flash_attention launched {launches['flash_attention']} times "
+                             f"in training, want {want}")
+
+    state = {"params": params, "opt": opt}
+
+    def one_step():
+        state["params"], state["opt"], _ = step(state["params"], state["opt"],
+                                                {"tokens": batches[0]})
+
+    prof = profiled_step(one_step)
+
+    def loss_and_grad():
+        loss, _ = model.loss({"tokens": batches[0]})
+        return dict(zip(state["params"], torch.autograd.grad(loss, list(state["params"].values()))))
+
+    grads = loss_and_grad()
+    host_split = {"loss_and_grad_ms": host_ms(loss_and_grad),
+                  "adamw_update_ms": host_ms(lambda: adamw_update(grads, state["opt"],
+                                                                  state["params"], opt_cfg))}
+    med = float(np.median(step_ms))
+    out = {"steps": steps, "batch": B, "seq": S, "step_ms_median": med,
+           "step_ms": step_ms, "tokens_per_s": B * S / (med / 1e3),
+           "peak_memory_gb": peak_gb, "init_s": init_s, "losses": losses,
+           "launches": launches, "profiled_step": prof, "host_split": host_split,
+           "checkpoint": checkpoint_times(state)}
+    del model, params, opt, state, step, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_times(state: dict) -> dict:
+    """One ``CheckpointManager.save`` of a training state (the card's tensors
+    copied to the host and written as npz) and one ``restore_latest`` of it
+    onto the card, each timed on the host clock: the saves and the restore
+    that (d)'s two runs make, at the same size."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    ckpt = ROOT / "build" / "train_ckpt" / "chip_smoke_save"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(0, state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, restored = mgr.restore_latest(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if step != 0 or not torch.equal(restored["params"]["tok"], state["params"]["tok"]):
+        raise AssertionError("the training state did not restore")
+    log(f"  checkpoint of the full-width state: {nbytes / 1e9:.3f} GB, save {save_s:.3f} s, "
+        f"restore {restore_s:.3f} s")
+    return {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s}
+
+
+def train_cli_phase() -> dict:
+    """(d) ``python -m repro_torch.launch.train --arch smollm-135m --steps
+    20 --save-every 10`` as a subprocess on the card, then again to 30
+    steps: the second run resumes from the first's checkpoint."""
+    ckpt = ROOT / "build" / "train_ckpt" / "chip_smoke"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    first = run_cli("repro_torch.launch.train", TRAIN_CLI + ["--steps", "20", "--ckpt", str(ckpt)])
+    first_s = time.perf_counter() - t0
+    second = run_cli("repro_torch.launch.train", TRAIN_CLI + ["--steps", "30", "--ckpt", str(ckpt)])
+    total_s = time.perf_counter() - t0
+    lines = second.strip().splitlines()
+    if "resumed from step 10" not in lines:
+        raise AssertionError(f"the second training run did not resume: {lines}")
+    saved = sorted(p.relative_to(ckpt).as_posix() for p in ckpt.glob("*/step_*"))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # each run's wall clock against its own "done in" (the step loop, its
+    # saves included): the rest is the process's start, imports, the
+    # card's context, the model's init and, in the second run, the restore
+    loop_s = [float(out.strip().splitlines()[-1].split()[2].rstrip("s")) for out in (first, second)]
+    walls = [first_s, total_s - first_s]
+    split = {"wall_s": walls, "loop_s": loop_s,
+             "outside_loop_s": [w - l for w, l in zip(walls, loop_s)]}
+    log(f"  (d) trained 20 steps, resumed from step 10 to 30; checkpoints {saved}; "
+        f"split {json.dumps(split)}")
+    return {"first_s": first_s, "total_s": total_s, "checkpoints": saved, "split": split,
+            "first_lines": first.strip().splitlines(), "second_lines": lines}
+
+
+def pipeline_phase() -> dict:
+    """(e) ``python -m repro_torch.train_and_serve --steps 60`` on the card,
+    then with ``--device cpu`` (one after the other: two torch processes at
+    once fight over the host's cores): the arms' costs equal, and
+    test_system's behavioural asserts hold on the card."""
+    ckpt = ROOT / "build" / "train_ckpt" / "chip_smoke_pipeline"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs, wall_s = {}, {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out = run_cli("repro_torch.train_and_serve", ["--steps", str(PIPELINE_STEPS),
+                                                      "--device", where, "--ckpt", str(ckpt / where)])
+        wall_s[where] = time.perf_counter() - t0
+        runs[where] = json.loads(out.strip().splitlines()[-1])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    card, cpu = runs["cuda"], runs["cpu"]
+    costs = [a["cost"] for a in card["arms"]]
+    if costs != [a["cost"] for a in cpu["arms"]]:
+        raise AssertionError(f"arm costs differ: card {costs}, cpu {[a['cost'] for a in cpu['arms']]}")
+    acc = [a["accuracy"] for a in card["arms"]]
+    by_mult = {b["multiple"]: b for b in card["budgets"]}
+    checks = {
+        "bigger arm beats the smallest": acc[-1] > acc[0] and costs[-1] > costs[0],
+        "ensemble >= best arm - 0.08": by_mult[100.0]["accuracy"] >= max(acc) - 0.08,
+        "tight budget above 1/K": by_mult[1.2]["accuracy"] > 1.0 / 8,
+        "every cost within budget": all(b["max_cost"] <= b["budget"] + 1e-15
+                                        for b in card["budgets"]),
+        "loss drops by more than 0.25": all(a["loss_last10"] < a["loss_first10"] - 0.25
+                                            for a in card["arms"]),
+    }
+    log(f"  (e) arm costs card == cpu {costs}; accuracies card {acc}, cpu "
+        f"{[a['accuracy'] for a in cpu['arms']]}; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"train_and_serve on the card fails test_system's asserts: {checks}")
+    return {"card": card, "cpu": cpu, "checks": checks, "wall_s": wall_s}
+
+
+def train_summary(train: dict, smi: str) -> dict:
+    """The ``[train]`` line: (c)'s step time, throughput, peak memory and
+    profiled step beside the card's name and power limit, and the other
+    parts' headline numbers."""
+    full, pipe = train["full"], train["pipeline"]
+    keys = ("steps", "batch", "seq", "step_ms_median", "tokens_per_s", "peak_memory_gb",
+            "init_s", "launches", "profiled_step", "host_split")
+    return {"card": smi, **{k: full[k] for k in keys},
+            "first_losses": full["losses"][:5], "last_losses": full["losses"][-5:],
+            "smoke_max_rel": {a: train["smoke"][a]["max_rel"] for a in ARCHS},
+            "smoke_launches": train["smoke"]["launches"], "cli_s": train["cli"]["total_s"],
+            "cli_split": train["cli"]["split"], "checkpoint": full["checkpoint"],
+            "pipeline": {"card_accuracy": [a["accuracy"] for a in pipe["card"]["arms"]],
+                         "cpu_accuracy": [a["accuracy"] for a in pipe["cpu"]["arms"]],
+                         "card_budgets": pipe["card"]["budgets"], "wall_s": pipe["wall_s"]},
+            "seconds": {k: train[k] for k in ("autograd_s", "smoke_s", "full_s", "cli_s",
+                                              "pipeline_s")}}
+
+
+def train_phase(dev) -> dict:
+    """Phase 16: (a)-(e) above, each timed."""
+    out, t = {}, time.perf_counter()
+    log("  (a) autograd Functions of the model kernels vs the plain versions' autograd")
+    out["autograd"] = autograd_phase(dev)
+    out["flash_training_shape"] = flash_training_times(dev)
+    log(f"  flash_attention at the training shape: {json.dumps(out['flash_training_shape'])}")
+    out["autograd_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    log("  (b) SMOKE families, f32, card vs cpu")
+    out["smoke"] = smoke_train_phase(dev)
+    out["smoke_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    log("  (c) smollm-135m at full width, bf16")
+    out["full"] = full_train_phase(dev)
+    out["full_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    log("  (d) the training CLI with checkpoint/restart")
+    out["cli"] = train_cli_phase()
+    out["cli_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    log("  (e) train, calibrate and serve: card vs cpu")
+    out["pipeline"] = pipeline_phase()
+    out["pipeline_s"] = time.perf_counter() - t
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2186,6 +2718,19 @@ def main() -> int:
     for row in kernels:
         if row["name"] in ("belief_aggregate", "mc_correctness_grouped"):
             row["replica_launches"] = replicas["fused"]["launches"][row["name"]]
+    t0 = time.perf_counter()
+    log("[16 training: gradients through the kernels, SMOKE card vs cpu, smollm-135m at full "
+        "width, the CLI with restart, train-calibrate-serve]")
+    train = train_phase(dev)
+    phases["train_s"] = time.perf_counter() - t0
+    full = train["full"]
+    log(f"[train] {json.dumps(train_summary(train, smi))}")
+    for row in kernels:
+        if row["name"] in MODEL_KERNELS:
+            row["train_launches"] = {"smoke_f32": train["smoke"]["launches"][row["name"]],
+                                     "smollm_135m_bf16": full["launches"][row["name"]]}
+        if row["name"] == "flash_attention":
+            row["training_shape"] = train["flash_training_shape"]
     log(f"[earlier kernels] {json.dumps(earlier_kernels(kernels))}")
     floor = launch_floor_ms(dev)
     for row in kernels:

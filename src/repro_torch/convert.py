@@ -24,6 +24,11 @@ in nested numpy dicts — ``{"embed": {"tok"}, "final_norm", ["head":
 :func:`lm_params_from_jax` unstacks into the port's per-layer layout, in
 the JAX layer order; ``lm_arm_state`` / ``lm_arm_from_state`` carry a whole
 JAX ``LMArm`` (config fields, weights, class tokens, pricing inputs).
+Training state crosses the same way: :func:`train_state_from_jax` takes
+the JAX parameter pytree and AdamW state (``m``, ``v``, ``master``,
+``step``, ``residuals`` under a codec) and gives the port's per-layer
+parameters and its optimizer state keyed by parameter name, so both
+packages train from the same numbers.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ import torch
 from repro_torch.core.estimation import SuccessProbEstimator
 from repro_torch.data.synth import OracleWorkload
 from repro_torch.distributed.fault import FaultPolicy
-from repro_torch.models import LM, ModelConfig, unstack_params
+from repro_torch.models import LM, ModelConfig, named_params, unstack_params
 from repro_torch.serving.engine import LMArm, OracleArm, PoolEngine
 from repro_torch.serving.router import ThriftRouter
 
@@ -168,3 +173,16 @@ def lm_arm_from_state(state: Dict, device="cuda") -> LMArm:
         np.asarray(state["class_token_ids"]), tokens_per_query=state["tokens_per_query"],
         metered=state["metered"],
     )
+
+
+def train_state_from_jax(params_np: Dict, opt_np: Dict, cfg) -> tuple:
+    """``(params, opt_state)`` of the port from a JAX ``init_train_state``
+    (or a JAX train step's output) given as nested numpy dicts: the
+    per-layer parameter layout :class:`LM` takes and the optimizer state
+    keyed by ``LM.named_parameters()`` names, all CPU tensors."""
+    named = lambda tree: named_params(lm_params_from_jax(tree, cfg))
+    opt = {k: named(opt_np[k]) for k in ("m", "v", "master")}
+    opt["step"] = torch.tensor(int(np.asarray(opt_np["step"])), dtype=torch.int32)
+    if "residuals" in opt_np:
+        opt["residuals"] = named(opt_np["residuals"])
+    return lm_params_from_jax(params_np, cfg), opt

@@ -8,7 +8,11 @@
 // (B, T, G, HD), out (B, S, H, HD) in q's type; query head h reads key/value
 // head h / (H / G). Query i sees key j iff (!causal || j <= i) and
 // (window == 0 || i - j < window). A row that sees no key writes 0, as the
-// Pallas kernel does (acc / max(l, 1e-30) with l = 0).
+// Pallas kernel does (acc / max(l, 1e-30) with l = 0). The kernels are
+// instantiated at HD in {16, 32, 64, 128, 256}; the wrapper zero-pads any
+// other head dim up to the next of those (zero q and k columns add nothing
+// to a score, zero v columns give zero output columns, sliced off) and
+// passes the true head dim's softmax scale, 1 / sqrt(hd) in f32.
 //
 // Two kernels, chosen by dtype in flash_attention_launch:
 //
@@ -444,7 +448,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
 template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-              int Tk, int G, int causal, int window, cudaStream_t stream) {
+              int Tk, int G, int causal, int window, float scale, cudaStream_t stream) {
   // 64-key tiles; 32 at hd=256, so that Q and two K/V stages (96 KB) leave
   // room for two blocks on an SM; 1 KB more to align the tiles on 1024
   constexpr int kKeys = HD == 256 ? 32 : 64;
@@ -455,7 +459,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const float scale_log2 = (1.0f / sqrtf((float)HD)) * 1.4426950408889634f;
+  const float scale_log2 = scale * 1.4426950408889634f;
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
@@ -479,7 +483,7 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int S, int H, int Tk, int G, int causal, int window) {
+                       int S, int H, int Tk, int G, int causal, int window, float scale) {
   constexpr int kPer = (HD + kWarp - 1) / kWarp;   // head dims per lane
   constexpr int kStride = HD + 1;                  // padded key row: conflict-free
   extern __shared__ float smem[];
@@ -495,7 +499,6 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * kRows;
   const int row = q0 + warp;
   const bool active = row < S;       // warp-uniform
-  const float scale = 1.0f / sqrtf((float)HD);
 
   const long long q_off = (((long long)b * S + row) * H + h) * HD;
   float* qrow = qs + warp * HD;
@@ -578,7 +581,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-              int Tk, int G, int causal, int window, cudaStream_t stream) {
+              int Tk, int G, int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = (kTile * (HD + 1) + kTile * HD + kRows * HD) * sizeof(float);
   auto kernel = flash_attention_kernel<HD>;
   if (smem > 48 * 1024) {
@@ -588,7 +591,8 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S
   }
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, Tk, G, causal, window);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, Tk, G, causal, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -596,12 +600,12 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S
 
 template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Tk,
-           int G, int hd, int causal, int window, cudaStream_t st) {
+           int G, int hd, int causal, int window, float scale, cudaStream_t st) {
   switch (hd) {
-#define FLASH_CASE(HD)                                                                  \
-  case HD:                                                                              \
-    return kBf16 ? v3::launch_hd<HD>(q, k, v, o, B, S, H, Tk, G, causal, window, st)   \
-                 : v2::launch_hd<HD>(q, k, v, o, B, S, H, Tk, G, causal, window, st);
+#define FLASH_CASE(HD)                                                                     \
+  case HD:                                                                                 \
+    return kBf16 ? v3::launch_hd<HD>(q, k, v, o, B, S, H, Tk, G, causal, window, scale, st) \
+                 : v2::launch_hd<HD>(q, k, v, o, B, S, H, Tk, G, causal, window, scale, st);
     FLASH_CASE(16)
     FLASH_CASE(32)
     FLASH_CASE(64)
@@ -616,14 +620,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 
 // q (B, S, H, hd), k/v (B, T, G, hd), o (B, S, H, hd); all contiguous, all
 // bf16 (is_bf16 == 1: v3, tensor cores) or all f32 (is_bf16 == 0: v2, CUDA
-// cores). Returns cudaGetLastError().
+// cores); hd one of the template head dims (the wrapper zero-pads any other
+// hd up to the next one) and scale the scores' factor, 1 / sqrt(true hd) in
+// f32. Returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, int B, int S, int H, int Tk, int G,
                                       int hd, int causal, int window, int is_bf16,
-                                      void* stream) {
+                                      float scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (G <= 0 || H % G != 0 || window < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16 ? launch<true>(q, k, v, o, B, S, H, Tk, G, hd, causal, window, st)
-                 : launch<false>(q, k, v, o, B, S, H, Tk, G, hd, causal, window, st);
+  return is_bf16 ? launch<true>(q, k, v, o, B, S, H, Tk, G, hd, causal, window, scale, st)
+                 : launch<false>(q, k, v, o, B, S, H, Tk, G, hd, causal, window, scale, st);
 }

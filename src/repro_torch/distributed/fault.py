@@ -1,13 +1,16 @@
-"""Arm-level fault injection for the serving plane, and straggler tracking.
+"""Fault tolerance: failure detection, elastic re-mesh planning, straggler
+tracking, the checkpoint/restart driver, and arm-level fault injection for
+the serving plane.
 
-Host numpy: the PyTorch port's copy of the serving half of
-``repro/distributed/fault.py`` (``FAULT_*``, ``PROBE_WAVE``, the stateless
-uint64 cell hash, :class:`ArmFaultSpec`, :class:`FaultPolicy`,
-:func:`failover_gather`, :func:`attempted_failures`,
-:func:`observed_faults` and :class:`StragglerMitigator`), kept bit for bit
-so both packages draw the same faults for the same cells. The training half
-(heartbeats, elastic re-meshing, the checkpoint/restart driver) has no
-counterpart yet.
+Host Python and numpy: the PyTorch port's copy of
+``repro/distributed/fault.py``. The training half
+(:class:`HeartbeatMonitor`, :func:`plan_elastic_remesh`,
+:func:`rebatch_for_mesh`, :class:`StragglerMitigator`,
+:class:`FaultTolerantDriver`) is copied as it is; the serving half
+(``FAULT_*``, ``PROBE_WAVE``, the stateless uint64 cell hash,
+:class:`ArmFaultSpec`, :class:`FaultPolicy`, :func:`failover_gather`,
+:func:`attempted_failures` and :func:`observed_faults`) is kept bit for bit
+so both packages draw the same faults for the same cells.
 
 Fault draws are a pure counter-based hash evaluated on the host over the
 original wave schedule; the device wave program only ever sees the
@@ -16,9 +19,56 @@ resulting ``src``/``valid`` failover gather as data tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class HeartbeatMonitor:
+    """Declares a worker dead after ``timeout_s`` without a heartbeat."""
+
+    num_workers: int
+    timeout_s: float = 30.0
+
+    def __post_init__(self):
+        now = time.monotonic()
+        self.last_seen = {w: now for w in range(self.num_workers)}
+
+    def beat(self, worker: int, t: Optional[float] = None):
+        self.last_seen[worker] = time.monotonic() if t is None else t
+
+    def dead_workers(self, now: Optional[float] = None) -> List[int]:
+        now = time.monotonic() if now is None else now
+        return [w for w, t in self.last_seen.items() if now - t > self.timeout_s]
+
+
+def plan_elastic_remesh(
+    mesh_shape: Dict[str, int], failed_hosts: Sequence[int], hosts_per_data_row: int = 1
+) -> Dict[str, int]:
+    """Shrink the data axis past failed hosts, keeping the model axis intact.
+
+    TP shards within a model row are tightly coupled (they hold disjoint
+    parameter shards with per-layer collectives), so the recovery unit is a
+    whole data row: drop as many rows as have a failure, keep batch
+    divisibility by recomputing per-row batch. Returns the new mesh shape;
+    the restart path is checkpoint-restore under the new mesh (parameters
+    are re-sharded by pjit's in_shardings on load).
+    """
+    if not failed_hosts:
+        return dict(mesh_shape)
+    rows_lost = len(set(h // hosts_per_data_row for h in failed_hosts))
+    new = dict(mesh_shape)
+    new["data"] = max(1, mesh_shape["data"] - rows_lost)
+    return new
+
+
+def rebatch_for_mesh(global_batch: int, old_data: int, new_data: int) -> int:
+    """Largest batch <= global_batch divisible by the new data-axis size,
+    preserving per-row microbatch shape where possible."""
+    per_row = global_batch // old_data
+    return per_row * new_data
 
 
 @dataclasses.dataclass
@@ -61,6 +111,36 @@ class StragglerMitigator:
         if slow_arm in pending_arms:
             plan.append(slow_arm)
         return plan
+
+
+@dataclasses.dataclass
+class FaultTolerantDriver:
+    """Wraps a train loop with checkpoint/restart + failure handling.
+
+    Usage::
+
+        driver = FaultTolerantDriver(ckpt_manager, save_every=50)
+        state, start = driver.restore(state_template)
+        for step in range(start, total):
+            state = train_step(state, batch)
+            driver.maybe_save(step, state)
+            if driver.check_failures(monitor):  # -> elastic re-mesh restart
+                break
+    """
+
+    ckpt: "object"
+    save_every: int = 100
+
+    def restore(self, template):
+        step, state = self.ckpt.restore_latest(template)
+        return state, (0 if step is None else step + 1)
+
+    def maybe_save(self, step: int, state):
+        if step % self.save_every == 0:
+            self.ckpt.save(step, state)
+
+    def check_failures(self, monitor: HeartbeatMonitor) -> List[int]:
+        return monitor.dead_workers()
 
 
 # ---------------------------------------------------------------------------

@@ -31,9 +31,9 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # entry point -> ctypes argument types (pointers and the stream as c_void_p,
-# strides as c_longlong)
+# strides as c_longlong, a float scalar as c_float)
 KERNELS = {
     "belief_aggregate": (
         "belief_aggregate_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -46,7 +46,7 @@ KERNELS = {
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
     "flash_attention": (
-        "flash_attention_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "flash_attention_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
     "rglru_scan": ("rglru_scan_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "mamba_scan": (

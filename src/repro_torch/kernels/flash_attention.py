@@ -43,32 +43,46 @@ The launch branches on dtype, explicitly:
   and the f32 one-unit models.
 
 Both take any S and T (the ragged tail is masked in the kernel, unlike the
-Pallas wrapper, which needs block multiples), any ``window >= 0``, hd in
-{16, 32, 64, 128, 256} and H a multiple of G. A row that sees no key
-writes 0, as the Pallas kernel does. No path routes a call to the other
-version or to the plain one: a failed build or launch raises.
+Pallas wrapper, which needs block multiples), any ``window >= 0``, any hd
+from 1 to 256 and H a multiple of G. The kernels are built at the head
+dims ``HEAD_DIMS``; :func:`launch` zero-pads q, k and v to the next of
+them (zero columns add nothing to a score and give zero output columns)
+and slices the output back, passing the true hd's scale ``1 / sqrt(hd)``
+in f32, as the JAX package's wrappers handle padding and layout. A row
+that sees no key writes 0, as the Pallas kernel does. No path routes a
+call to the other version or to the plain one: a failed build or launch
+raises.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)     # the kernels' template head dims
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def template_hd(hd: int) -> int:
+    """The smallest template head dim that holds ``hd`` (1 <= hd <= 256)."""
+    if not 1 <= hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention takes 1 <= hd <= {HEAD_DIMS[-1]}, got {hd}")
+    return next(t for t in HEAD_DIMS if t >= hd)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
            window: int = 0) -> torch.Tensor:
     """Run the CUDA kernel: q (B, S, H, hd), k and v (B, T, G, hd), all
-    contiguous, of one dtype (f32 or bf16), on one CUDA device. Returns
-    (B, S, H, hd) in q's dtype; raises on a bad input or a failed launch."""
+    contiguous, of one dtype (f32 or bf16), on one CUDA device, 1 <= hd <=
+    256. Returns (B, S, H, hd) in q's dtype; raises on a bad input or a
+    failed launch."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"need q (B,S,H,hd) and k/v (B,T,G,hd), got {tuple(q.shape)}, {tuple(k.shape)}")
     B, S, H, hd = q.shape
     T, G = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes hd in {HEAD_DIMS}, got {hd}")
+    tpl = template_hd(hd)
     if G < 1 or H % G:
         raise ValueError(f"query heads {H} must be a multiple of kv heads {G}")
     if window < 0:
@@ -77,8 +91,6 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = Tru
         raise ValueError(f"flash_attention takes {DTYPES}, got {q.dtype}")
     if max(B, H) > 65535:
         raise ValueError(f"B={B} and H={H} must each be at most 65535 (grid limit)")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("bf16 q, k and v must start on 16 bytes (the kernel copies 16-byte pieces)")
     dev = q.device
     for name, t, shape in (("q", q, (B, S, H, hd)), ("k", k, (B, T, G, hd)),
                            ("v", v, (B, T, G, hd))):
@@ -87,14 +99,19 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = Tru
                 f"{name}: need contiguous {q.dtype} {shape} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
             )
+    if tpl != hd:                        # zero-pad the head dim to the template's
+        q, k, v = (F.pad(t, (0, tpl - hd)) for t in (q, k, v))
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bf16 q, k and v must start on 16 bytes (the kernel copies 16-byte pieces)")
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     out = torch.empty_like(q)
     # explicit dtype branch: bf16 -> v3 (tensor cores), f32 -> v2 (CUDA cores)
     fn = _build.entry("flash_attention")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, S, H, T, G, hd, int(bool(causal)), int(window),
-                 int(q.dtype == torch.bfloat16), stream)
+                 B, S, H, T, G, tpl, int(bool(causal)), int(window),
+                 int(q.dtype == torch.bfloat16), scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    return out
+    return out if tpl == hd else out[..., :hd].contiguous()

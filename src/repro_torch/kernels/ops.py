@@ -5,6 +5,15 @@ version (:mod:`repro_torch.kernels.ref`). For a CUDA tensor it launches the
 hand-written CUDA kernel, building it on first use, or raises: there is no
 fallback from the card to the plain version. ``<wrapper>.launches`` counts
 the kernel launches, and nothing else increments it.
+
+The three model kernels (``flash_attention``, ``rglru_scan``,
+``mamba_scan``) run on CUDA tensors as a :class:`KernelFunction`, so
+training differentiates through them: the forward launches the kernel and
+the backward differentiates the plain version, recomputed on the saved
+inputs. The JAX package has no backward kernel either (its
+``pl.pallas_call`` sites are all forward; ``jax.grad`` differentiates the
+pure-jnp oracles). On the CPU the plain versions run under ordinary
+autograd.
 """
 from __future__ import annotations
 
@@ -85,18 +94,68 @@ def mc_correctness_grouped(responses, masks, log_weights, empty_belief,
 mc_correctness_grouped.launches = 0
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
-    """(B, S, H, hd) x (B, T, G, hd) -> (B, S, H, hd) causal / windowed GQA
-    attention in q's dtype (f32 or bf16)."""
-    if _device_kind(q) == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    out = _flash_attention.launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  causal=causal, window=window)
+class KernelFunction(torch.autograd.Function):
+    """A hand-written kernel's forward with its plain version's gradient.
+
+    ``KernelFunction.apply(launch, plain, kwargs, *inputs)`` returns
+    ``launch(*inputs, **kwargs)``. Its backward runs ``plain(*inputs,
+    **kwargs)`` again on the saved inputs under ``torch.enable_grad()`` and
+    returns ``torch.autograd.grad`` of it for the upstream gradients given
+    (an output whose gradient is not needed is left out), so the input
+    gradients are exactly those of the plain version's own autograd.
+    ``inputs`` may hold ``None``.
+    """
+
+    @staticmethod
+    def forward(ctx, launch, plain, kwargs, *inputs):
+        ctx.plain, ctx.kwargs = plain, kwargs
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs)
+        return launch(*inputs, **kwargs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[3:]
+        # a named range, so a profile can tell this backward's device time
+        with torch.profiler.record_function(f"{ctx.plain.__name__} backward"):
+            with torch.enable_grad():
+                leaves = [None if t is None else t.detach().requires_grad_(n)
+                          for t, n in zip(ctx.saved_tensors, need)]
+                outs = ctx.plain(*leaves, **ctx.kwargs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+            wrt = [t for t, n in zip(leaves, need) if n]
+            got = [None] * len(wrt)
+            if pairs and wrt:
+                got = list(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                               [g for _, g in pairs], allow_unused=True))
+        got.reverse()
+        return (None, None, None, *(got.pop() if n else None for n in need))
+
+
+def _launch_flash(q, k, v, causal, window):
+    out = _flash_attention.launch(q, k, v, causal=causal, window=window)
     flash_attention.launches += 1
     return out
 
 
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """(B, S, H, hd) x (B, T, G, hd) -> (B, S, H, hd) causal / windowed GQA
+    attention in q's dtype (f32 or bf16), 1 <= hd <= 256."""
+    if _device_kind(q) == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return KernelFunction.apply(_launch_flash, ref.flash_attention_ref,
+                                {"causal": causal, "window": window},
+                                q.contiguous(), k.contiguous(), v.contiguous())
+
+
 flash_attention.launches = 0
+
+
+def _launch_rglru(log_a, gated, h0):
+    out = _rglru_scan.launch(log_a, gated, h0)
+    rglru_scan.launches += 1
+    return out
 
 
 def rglru_scan(log_a, gated, h0):
@@ -104,12 +163,17 @@ def rglru_scan(log_a, gated, h0):
     f32 = lambda t: t.to(torch.float32).contiguous()
     if _device_kind(log_a) == "cpu":
         return ref.rglru_scan_ref(f32(log_a), f32(gated), f32(h0))
-    out = _rglru_scan.launch(f32(log_a), f32(gated), f32(h0))
-    rglru_scan.launches += 1
-    return out
+    return KernelFunction.apply(_launch_rglru, ref.rglru_scan_ref, {},
+                                f32(log_a), f32(gated), f32(h0))
 
 
 rglru_scan.launches = 0
+
+
+def _launch_mamba(x, dt, A, Bmat, Cmat, Dskip, h0):
+    out = _mamba_scan.launch(x, dt, A, Bmat, Cmat, Dskip, h0)
+    mamba_scan.launches += 1
+    return out
 
 
 def mamba_scan(x, dt, A, Bmat, Cmat, Dskip, h0=None):
@@ -121,13 +185,11 @@ def mamba_scan(x, dt, A, Bmat, Cmat, Dskip, h0=None):
     the launch of the block's own tensors."""
     if _device_kind(x) == "cpu":
         return ref.mamba_scan_ref(x, dt, A, Bmat, Cmat, Dskip, h0)
-    out = _mamba_scan.launch(
+    return KernelFunction.apply(
+        _launch_mamba, ref.mamba_scan_ref, {},
         x.contiguous(), dt.to(torch.float32).contiguous(), A.to(torch.float32).contiguous(),
-        Bmat, Cmat, Dskip,
-        None if h0 is None else h0.to(torch.float32).contiguous(),
+        Bmat, Cmat, Dskip, None if h0 is None else h0.to(torch.float32).contiguous(),
     )
-    mamba_scan.launches += 1
-    return out
 
 
 mamba_scan.launches = 0

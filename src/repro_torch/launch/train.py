@@ -1,0 +1,89 @@
+"""Training launcher of the port (``repro/launch/train.py``): real steps on
+``--device`` (default ``cuda``; a missing card is an error, never a
+fallback to the CPU), with checkpoint/restart.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --smoke \\
+        --steps 50 --batch 8 --seq 64 --device cpu
+
+``--smoke`` trains the reduced same-family config. At full width
+smollm-135m trains on one 80 GB card; recurrentgemma-9b and
+falcon-mamba-7b need about 14 bytes of training state a parameter (bf16
+weights and gradients, f32 master weights and moments), past one card,
+so they train at ``--smoke`` only. Each run resumes from the newest
+checkpoint under ``--ckpt/<config name>`` (default under the
+repository's ``build/``) and saves every ``--save-every`` steps; a resumed
+run prints ``resumed from step <n>``.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from pathlib import Path
+
+import numpy as np
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config, get_smoke_config, list_archs
+from repro_torch.data import DataPipeline
+from repro_torch.distributed.fault import FaultTolerantDriver
+from repro_torch.models import LM
+from repro_torch.training import (CompressionConfig, OptimizerConfig, init_train_state,
+                                  make_train_step)
+
+DEFAULT_CKPT = Path(__file__).resolve().parents[3] / "build" / "train_ckpt"
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m", choices=list_archs())
+    ap.add_argument("--smoke", action="store_true", help="use the reduced config")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt", default=str(DEFAULT_CKPT))
+    ap.add_argument("--save-every", type=int, default=25)
+    ap.add_argument("--compress", default="none", choices=["none", "int8", "topk"])
+    ap.add_argument("--device", default="cuda",
+                    help="where to train (cuda needs a card; cpu runs the plain versions)")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = LM(cfg, device=args.device, seed=0)
+    comp = CompressionConfig(codec=args.compress)
+    params, opt = init_train_state(model, comp)
+    n = sum(p.numel() for p in params.values())
+    print(f"[{cfg.name}] {n/1e6:.2f}M params, {args.steps} steps")
+
+    step_fn = make_train_step(
+        model, OptimizerConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps), comp,
+    )
+
+    rng = np.random.default_rng(0)
+
+    def make_batch(step):
+        return {"tokens": rng.integers(0, cfg.vocab_size, (args.batch, args.seq)).astype(np.int32)}
+
+    pipe = DataPipeline(make_batch)
+    mgr = CheckpointManager(os.path.join(args.ckpt, cfg.name))
+    driver = FaultTolerantDriver(mgr, save_every=args.save_every)
+    state, start = driver.restore({"params": params, "opt": opt})
+    params, opt = state["params"], state["opt"]
+    if start:
+        print(f"resumed from step {start - 1}")
+
+    t0 = time.time()
+    try:
+        for s in range(start, args.steps):
+            params, opt, m = step_fn(params, opt, next(pipe))
+            driver.maybe_save(s, {"params": params, "opt": opt})
+            if s % 10 == 0 or s == args.steps - 1:
+                print(f"step {s:4d} loss {float(m['loss']):.4f} lr {float(m['lr']):.2e}")
+    finally:
+        pipe.close()
+    print(f"done in {time.time()-t0:.1f}s")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,10 @@
-"""Model substrate of the port: configs, layers and the LM (forward only)."""
+"""Model substrate of the port: configs, layers, the LM and its loss."""
 from .config import SHAPES, ModelConfig, ShapeConfig, shape_applicable
 from .init import init_params, padded_vocab, unstack_params
-from .model import LM, block_window
+from .model import IGNORE, LM, block_window, named_params
 
 __all__ = [
     "ModelConfig", "ShapeConfig", "SHAPES", "shape_applicable",
-    "init_params", "padded_vocab", "unstack_params", "LM", "block_window",
+    "init_params", "padded_vocab", "unstack_params", "LM", "block_window", "IGNORE",
+    "named_params",
 ]

@@ -1,11 +1,13 @@
-"""Per-block-type forward functions over a (B, S, D) sequence (the port of
-``repro/models/blocks.py``, forward only).
+"""Per-block-type functions over a whole (B, S, D) sequence (the port of
+``repro/models/blocks.py``'s full-sequence blocks), for serving and
+training alike.
 
 Each function takes the block's parameters as a name -> tensor mapping
-(the JAX names) and returns the block's output. Prefill caches, the
-one-token decode steps, MoE blocks and the int8 KV cache wait for the
-decode and MoE slices; the ``constrain`` sharding annotations of the JAX
-package have no counterpart on one card.
+(the JAX names) and returns the block's output; autograd differentiates
+it (through the model kernels by their ``KernelFunction`` on the card).
+Prefill caches, the one-token decode steps, MoE blocks and the int8 KV
+cache wait for the decode and MoE slices; the ``constrain`` sharding
+annotations of the JAX package have no counterpart on one card.
 """
 from __future__ import annotations
 

@@ -1,26 +1,32 @@
-"""The LM (the port of ``repro/models/model.py``, forward only): embedding
--> blocks -> logits.
+"""The LM (the port of ``repro/models/model.py``): embedding -> blocks ->
+logits, and the next-token loss the trainer differentiates.
 
 :class:`LM` is an ``nn.Module`` that owns its weights: a :class:`Block` per
 layer, in the JAX package's layer order (``cfg.segments()``, then repeats,
 then the pattern unit), each holding its parameters under the JAX names.
-The layers run as a Python loop; the JAX package's scan over stacked
-segments, ``jax.checkpoint`` (remat) and the ``constrain`` sharding
-annotations have no counterpart. ``prefill``, ``decode_step``,
-``init_cache``, ``loss`` and ``_chunked_xent`` wait for the decode and
-training slices.
+The layers run as a Python loop where the JAX package scans stacked
+segments; ``cfg.remat`` runs each layer under ``torch.utils.checkpoint``
+while grad is enabled (JAX's ``jax.checkpoint``; the numbers do not
+change), and the ``constrain`` sharding annotations have no counterpart.
+Parameters are frozen for serving; the trainer unfreezes them
+(:func:`repro_torch.training.init_train_state`). ``prefill``,
+``decode_step`` and ``init_cache`` wait for the decode slice; the loss's
+frontend and MoE branches wait for those families.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import blocks as B
 from .config import ModelConfig
 from .init import init_params, unstack_params
 from .mlp import rmsnorm
+
+IGNORE = -1
 
 
 def block_window(cfg: ModelConfig) -> int:
@@ -87,6 +93,21 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.tok.device
 
+    def stacked_groups(self) -> List[List[str]]:
+        """The names of the parameters the JAX package holds as one array:
+        each segment stacks one block parameter of its pattern unit over
+        its repeats; the embedding, final norm and head stand alone. The
+        gradient codecs work per such group, as the JAX package's work per
+        leaf."""
+        groups = [["tok"], ["final_norm"]] + ([["head"]] if self.head is not None else [])
+        base = 0
+        for unit, repeats in self.cfg.segments():
+            for j in range(len(unit)):
+                groups += [[layer_param_name(base + r * len(unit) + j, name)
+                            for r in range(repeats)] for name in self.layers[base + j].params]
+            base += repeats * len(unit)
+        return groups
+
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.tok[tokens]
 
@@ -96,12 +117,89 @@ class LM(nn.Module):
         logits = h @ (self.tok.T if self.head is None else self.head)
         if self.cfg.logits_softcap > 0:
             c = self.cfg.logits_softcap
-            logits = (logits / c).tanh_().mul_(c)    # in place: saves a logits-sized copy
+            if torch.is_grad_enabled():
+                logits = torch.tanh(logits / c) * c
+            else:
+                logits = (logits / c).tanh_().mul_(c)    # in place: saves a logits-sized copy
         return logits
+
+    def backbone(self, h: torch.Tensor) -> torch.Tensor:
+        """Every layer over (B, S, D); under ``cfg.remat`` and enabled grad
+        each layer's activations are recomputed in the backward."""
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for layer in self.layers:
+            h = (checkpoint(layer, h, self.window, use_reentrant=False) if remat
+                 else layer(h, self.window))
+        return h
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``."""
+        return self.logits(self.backbone(self.embed(tokens)))
+
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """Next-token LM loss over ``batch["tokens"]`` (B, S): ``(loss,
+        {"nll", "aux"})``, the mean f32 cross-entropy of every position but
+        the last against the next token (padded vocab slots masked)."""
+        cfg = self.cfg
+        if cfg.frontend != "none" or "frontend_embeds" in batch:
+            raise ValueError("the frontend branch of the loss is not ported yet")
+        if cfg.num_experts:
+            raise ValueError("the MoE branch of the loss is not ported yet")
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         h = self.embed(tokens)
-        for layer in self.layers:
-            h = layer(h, self.window)
-        return self.logits(h)
+        Bsz, S = h.shape[0], h.shape[1]
+        targets = torch.full((Bsz, S), IGNORE, dtype=torch.long, device=self.device)
+        targets[:, : S - 1] = tokens[:, 1:]
+        h = self.backbone(h)
+        if cfg.loss_chunk and cfg.loss_chunk < S:
+            nloss, ncount = self._chunked_xent(h, targets)
+        else:
+            nloss, ncount = _xent_sum(self.logits(h), targets, cfg.vocab_size)
+        loss = nloss / torch.clamp(ncount, min=1.0)
+        return loss, {"nll": loss, "aux": torch.zeros((), dtype=torch.float32, device=self.device)}
+
+    def _chunked_xent(self, h: torch.Tensor, targets: torch.Tensor):
+        """``(sum of nll, count)`` over ``cfg.loss_chunk`` positions at a
+        time, then the remainder."""
+        c, S = self.cfg.loss_chunk, h.shape[1]
+        n = S // c
+        nloss = ncount = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(n):
+            l, k = _xent_sum(self.logits(h[:, i * c:(i + 1) * c]), targets[:, i * c:(i + 1) * c],
+                             self.cfg.vocab_size)
+            nloss, ncount = nloss + l, ncount + k
+        if n * c < S:                                  # remainder
+            l, k = _xent_sum(self.logits(h[:, n * c:]), targets[:, n * c:], self.cfg.vocab_size)
+            nloss, ncount = nloss + l, ncount + k
+        return nloss, ncount
+
+
+def _xent_sum(logits: torch.Tensor, targets: torch.Tensor, vocab: int):
+    """Sum of masked next-token cross-entropies and the valid count (f32):
+    padded vocab slots are masked, ``IGNORE`` targets skipped."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    if V > vocab:                                      # mask padded vocab slots
+        logits = logits.masked_fill(torch.arange(V, device=logits.device) >= vocab, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    mask = (targets != IGNORE).float()
+    return ((lse - picked) * mask).sum(), mask.sum()
+
+
+def layer_param_name(i: int, name: str) -> str:
+    """The ``LM.named_parameters()`` name of layer ``i``'s parameter ``name``
+    (a :class:`Block` in ``LM.layers``, its tensors in ``Block.params``)."""
+    return f"layers.{i}.params.{name}"
+
+
+def named_params(layout: Dict) -> Dict[str, torch.Tensor]:
+    """The port's per-layer layout (as :class:`LM` takes it) keyed by the
+    names of ``LM.named_parameters()``, in their order: ``tok``,
+    ``final_norm``, ``head`` (untied), ``layers.<i>.params.<JAX name>``."""
+    out = {"tok": layout["embed"]["tok"], "final_norm": layout["final_norm"]}
+    if "head" in layout:
+        out["head"] = layout["head"]["w"]
+    for i, layer in enumerate(layout["layers"]):
+        out.update({layer_param_name(i, k): t for k, t in layer.items()})
+    return out

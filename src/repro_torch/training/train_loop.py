@@ -1,0 +1,89 @@
+"""The training step (the port of ``repro/training/train_loop.py``):
+microbatched f32 gradient accumulation, optional gradient compression,
+AdamW.
+
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
+keeps the JAX package's signature. The model owns its weights, so the
+step writes the new values into the model's parameters in place (one copy
+of the weights, not two) and returns them; ``params`` given that are not
+the model's own tensors (a restored checkpoint's) are first copied into
+the model. The optimizer state is returned anew, never changed in place.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.models import LM
+
+from .compression import CompressionConfig, compress_grads, init_residuals
+from .optimizer import OptimizerConfig, adamw_init, adamw_update
+
+
+def init_train_state(model: LM, comp: CompressionConfig = CompressionConfig()):
+    """``(params, opt_state)`` to train ``model``: its parameters (made
+    trainable, keyed by name) and a fresh AdamW state, with residuals
+    under an error-feedback codec. The JAX version's ``key`` has no
+    counterpart: the model was initialised when it was built."""
+    params = {name: p.requires_grad_() for name, p in model.named_parameters()}
+    opt = adamw_init(params)
+    if comp.codec != "none" and comp.error_feedback:
+        opt["residuals"] = init_residuals(params)
+    return params, opt
+
+
+def make_train_step(
+    model: LM,
+    opt_cfg: OptimizerConfig,
+    comp_cfg: CompressionConfig = CompressionConfig(),
+) -> Callable:
+    """Build ``train_step(params, opt_state, batch)`` for ``model``;
+    ``batch["tokens"]`` is (B, S), B a multiple of
+    ``model.cfg.num_microbatches``."""
+    own = dict(model.named_parameters())
+    groups = model.stacked_groups()
+
+    def load(params: Dict[str, torch.Tensor]) -> None:
+        if params.keys() != own.keys():
+            raise KeyError(f"params must be the model's {len(own)} named parameters")
+        with torch.no_grad():
+            for name, p in params.items():
+                if p is not own[name]:
+                    own[name].copy_(p)
+
+    def train_step(params, opt_state, batch):
+        load(params)
+        wrt = list(own.values())
+        tokens = torch.as_tensor(batch["tokens"], device=model.device)
+        m = model.cfg.num_microbatches
+        if m <= 1:
+            loss, _ = model.loss({"tokens": tokens})
+            grads = torch.autograd.grad(loss, wrt)
+        else:
+            b = tokens.shape[0]
+            if b % m:
+                raise ValueError(f"batch {b} not divisible by microbatches {m}")
+            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in wrt]
+            lsum = torch.zeros((), dtype=torch.float32, device=model.device)
+            for mb in tokens.reshape(m, b // m, *tokens.shape[1:]):
+                l, _ = model.loss({"tokens": mb})
+                gsum = [a + g.to(torch.float32) for a, g in zip(gsum, torch.autograd.grad(l, wrt))]
+                lsum = lsum + l.detach()
+            div = torch.full((), float(m), dtype=torch.float32, device=model.device)
+            grads = [g / div for g in gsum]
+            loss = lsum / div
+        grads = dict(zip(own, grads))
+
+        residuals = opt_state.get("residuals")
+        grads, new_res, comp_stats = compress_grads(grads, residuals, comp_cfg, groups)
+        opt_core = {k: v for k, v in opt_state.items() if k != "residuals"}
+        new_params, new_opt, opt_stats = adamw_update(grads, opt_core, own, opt_cfg)
+        if new_res is not None and comp_cfg.codec != "none":
+            new_opt["residuals"] = new_res
+        with torch.no_grad():
+            for name, p in own.items():
+                p.copy_(new_params[name])
+        return dict(own), new_opt, {"loss": loss.detach(), **opt_stats, **comp_stats}
+
+    return train_step

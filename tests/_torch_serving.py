@@ -33,10 +33,10 @@ import repro_torch.distributed.fault as t_fault
 import repro_torch.serving as t_serving
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
-    """Run torch on one CPU thread for the test (imported into a test module,
-    it applies to every test there). These scenarios run many small torch
+    """Run torch on one CPU thread while a test module runs (imported into
+    it, it applies to every test and module fixture there). These scenarios run many small torch
     ops, and the idle threads of torch's pool spin between them: with
     several test workers on one machine the spinning starves every worker.
     The results do not depend on the thread count."""

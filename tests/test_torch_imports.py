@@ -36,9 +36,37 @@ def test_port_files_exist():
         "src/repro_torch/serving/feedback.py", "src/repro_torch/serving/scheduler.py",
         "src/repro_torch/serving/replica.py", "src/repro_torch/distributed/sharding.py",
         "src/repro_torch/launch/__init__.py", "src/repro_torch/launch/serve.py",
-        "src/repro_torch/quickstart.py",
+        "src/repro_torch/quickstart.py", "src/repro_torch/training/optimizer.py",
+        "src/repro_torch/training/compression.py", "src/repro_torch/training/train_loop.py",
+        "src/repro_torch/training/__init__.py", "src/repro_torch/checkpoint/ckpt.py",
+        "src/repro_torch/checkpoint/__init__.py", "src/repro_torch/data/pipeline.py",
+        "src/repro_torch/data/tokenizer.py", "src/repro_torch/launch/train.py",
+        "src/repro_torch/train_and_serve.py",
     ):
         assert want in names
+
+
+def test_training_exports_the_reference_names():
+    """The training slice keeps the JAX package's public names (written out
+    here: this file imports neither package's JAX side)."""
+    import repro_torch.checkpoint as checkpoint
+    import repro_torch.data as data
+    import repro_torch.distributed as distributed
+    import repro_torch.training as training
+
+    assert set(training.__all__) == {
+        "OptimizerConfig", "adamw_init", "adamw_update", "global_norm", "lr_at",
+        "CompressionConfig", "compress_grads", "init_residuals",
+        "init_train_state", "make_train_step",
+    }
+    assert checkpoint.__all__ == ["CheckpointManager"]
+    assert set(data.__all__) == {"OracleWorkload", "make_token_task", "DataPipeline",
+                                 "host_shard_fn", "encode", "decode", "encode_batch", "VOCAB_SIZE"}
+    for name in ("HeartbeatMonitor", "plan_elastic_remesh", "rebatch_for_mesh",
+                 "FaultTolerantDriver", "StragglerMitigator"):
+        assert name in distributed.__all__
+    for mod in (training, checkpoint, data, distributed):
+        assert all(hasattr(mod, name) for name in mod.__all__)
 
 
 def test_serving_exports_the_front_door():

@@ -262,7 +262,9 @@ def test_flash_attention_rows_without_keys_are_zero(cuda, dtype, atol):
 
 
 def test_flash_attention_rejects_unsupported_head_dim(cuda):
-    q = torch.zeros(1, 4, 2, 48, device=cuda)
+    """Any hd from 1 to 256 runs (zero-padded to a template head dim); past
+    256 the wrapper raises."""
+    q = torch.zeros(1, 4, 2, 257, device=cuda)
     with pytest.raises(ValueError, match="hd"):
         ops.flash_attention(q, q, q)
 
