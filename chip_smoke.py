@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path — the router, the continuous-
 batching front door, the replica plane and the serve CLI — GreedyLLM and
-the paper's baselines, and its training path (gradients through the model
+the paper's baselines, its training path (gradients through the model
 kernels, the train step, the training CLI with restart, the
-train-calibrate-serve pipeline) on one CUDA card and check them.
+train-calibrate-serve pipeline) and every architecture of its registry
+on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -201,7 +202,33 @@ Phases:
     ``tests/test_system.py``'s asserts hold (the largest arm beats the
     smallest, the ensemble at 100x the cheapest cost scores at least the
     best arm - 0.08, 1.2x scores above 1/K, every cost within its budget,
-    every arm's loss falls by more than 0.25).
+    every arm's loss falls by more than 0.25);
+17. the other families — the seven architectures of the registry past
+    phase 8's three: (a) ``flash_attention`` in bf16 at their LM-arm route
+    shapes (B=64, S=T=127: h2o-danube's H=32 G=8 hd=80, zero-padded to the
+    128 template, window 4096; starcoder2's 36/4, qwen's 64/8 and
+    moonshot's 16/16 at hd 128) and at danube's window where it binds (B=1,
+    S=T=4608), each within 2e-2 of the f32 plain version and timed beside
+    its bound, the plain version and SDPA (with the window as a boolean
+    mask where it binds); (b) one pattern unit of each of the seven
+    ``CONFIG``s at published width in f32, card vs CPU within 1e-3 as in
+    phase 8, internvl2 and musicgen with frontend embeddings, the two MoE
+    configs printing how many tokens pick the same experts on both and the
+    smallest gap between the k-th and (k+1)-th router logit; (c) a
+    full-width bf16 pool of granite-moe-1b-a400m, h2o-danube-1.8b,
+    starcoder2-7b, internvl2-2b and musicgen-medium (13.6 B params) as
+    ``LMArm``s, calibrated, routed and scheduled as phase 9 does (counters
+    zeroed before it; ``flash_attention`` and ``belief_aggregate`` must
+    launch; the fault check on granite-moe, the cheapest arm), each arm's
+    forward timed and split; (d) moonshot-v1-16b-a3b alone at full width
+    in bf16 (27.7 B params): one 64-query ``classify_batch`` timed (median
+    of 3 after a warm-up), logits finite, peak memory, then freed; (e)
+    qwen1.5-110b at published width cut to 8 of its 80 layers (13.4 B
+    params; ``reduced``), the same; (f) the seven ``SMOKE`` configs in f32,
+    3 train steps each card vs CPU as in phase 16 (b), the frontend configs
+    on frontend batches, the MoE configs' aux finite and non-zero. A
+    ``[families]`` line prints each part's numbers beside the card's name
+    and power limit.
 
 Two lines before the last is a JSON object listing every kernel with its
 launches, error, bound and times — ``ms``/``plain_ms``/``library_ms`` are
@@ -220,7 +247,10 @@ and their ``replica_launches`` phase 15 (b)'s card stream,
 and ``lm_scheduler_launches`` the LM arms' scheduler run in phase 9, and
 the three model kernels' ``train_launches`` phase 16 (b) (SMOKE, f32) and
 (c) (smollm-135m, bf16), and the ``flash_attention`` row's
-``training_shape`` its phase-16 times; the
+``training_shape`` its phase-16 times and its ``families`` phase 17's
+shapes, timed, and launches (the pool's route and scheduler runs,
+moonshot's and qwen's forwards, the SMOKE training), and
+``belief_aggregate``'s ``families_pool_launches`` phase 17 (c)'s; the
 two ``mc_correctness`` rows carry ``lifted``, their phase-3 cases past
 the limits of earlier versions, timed.
 ``flash_attention`` is listed at the
@@ -237,6 +267,7 @@ exits non-zero; without a CUDA device, or without the repository's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -970,33 +1001,84 @@ def unit_config(arch: str):
     return dataclasses.replace(cfg, num_layers=len(cfg.block_pattern), dtype="float32")
 
 
-def model_phase(dev) -> dict:
+@contextlib.contextmanager
+def router_inputs():
+    """Record each MoE layer's router input and weight (``moe_mlp``'s first
+    two arguments) while it runs; the list is yielded."""
+    from repro_torch.models import blocks
+
+    seen, plain = [], blocks.moe_mlp
+
+    def spy(x, router_w, *rest):
+        seen.append((x, router_w.detach().clone()))     # the model may move its weights after
+        return plain(x, router_w, *rest)
+
+    blocks.moe_mlp = spy
+    try:
+        yield seen
+    finally:
+        blocks.moe_mlp = plain
+
+
+def expert_agreement(card: list, cpu: list, k: int) -> dict:
+    """The top-k expert ids of each MoE layer's tokens, from the router
+    inputs the card and the CPU forwards recorded: how many tokens pick the
+    same experts in the same order, and the smallest gap between the k-th
+    and (k+1)-th f32 router logit on the CPU (a flip needs the two sums to
+    differ by more than it)."""
+    from repro_torch.models import router_topk
+
+    same = total = 0
+    gap = float("inf")
+    with torch.inference_mode():
+        for (xg, wg), (xc, wc) in zip(card, cpu):
+            ids_g, _ = router_topk(xg.float() @ wg.float(), k)
+            logits = xc.float() @ wc.float()
+            ids_c, _ = router_topk(logits, k)
+            same += int((ids_g.cpu() == ids_c).all(dim=1).sum())
+            total += ids_c.shape[0]
+            top = torch.sort(logits, dim=-1, descending=True).values
+            gap = min(gap, float((top[:, k - 1] - top[:, k]).min()))
+    return {"tokens_same_experts": same, "tokens": total, "min_topk_gap": gap}
+
+
+def model_phase(dev, archs=ARCHS, seed: int = 7) -> dict:
     """Each family's one-unit f32 model: the same weights forward on the
-    card (the kernels) and on the CPU (their plain versions)."""
+    card (the kernels) and on the CPU (their plain versions); frontend
+    archs take frontend embeddings, MoE archs report their expert ids'
+    agreement."""
     from repro_torch.models import LM
 
-    errs = {}
-    for i, arch in enumerate(ARCHS):
+    out = {}
+    for i, arch in enumerate(archs):
         cfg = unit_config(arch)
         t0 = time.perf_counter()
-        model = LM(cfg, device=dev, seed=7 + i)
-        tokens = torch.as_tensor(np.random.default_rng(i).integers(0, cfg.vocab_size, (2, 127)))
-        with torch.inference_mode():
-            got = model(tokens.to(dev)).cpu()
+        model = LM(cfg, device=dev, seed=seed + i)
+        rng = np.random.default_rng(seed + i)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 127)))
+        fe = (torch.as_tensor(rng.normal(0, 1, (2, cfg.frontend_len, cfg.d_model)), dtype=torch.float32)
+              if cfg.frontend != "none" else None)
+        S = 127 + (0 if fe is None else fe.shape[1])
+        with torch.inference_mode(), router_inputs() as seen:
+            got = model(tokens.to(dev), None if fe is None else fe.to(dev)).cpu()
+            n_card = len(seen)
             model.to("cpu")                          # the same weights, on the CPU
-            want = model(tokens)
+            want = model(tokens, fe)
         err = float((got - want).abs().max())
-        ok = bool(torch.isfinite(got).all()) and got.shape == (2, 127, want.shape[-1])
-        log(f"  {arch} {cfg.layer_types} f32: logits {tuple(got.shape)} card vs cpu "
-            f"max_abs_err={err:.3g} (|logit| <= {float(want.abs().max()):.3g}) "
-            f"in {time.perf_counter() - t0:.1f} s")
+        ok = bool(torch.isfinite(got).all()) and got.shape == (2, S, want.shape[-1])
+        experts = (expert_agreement(seen[:n_card], seen[n_card:], cfg.experts_per_token)
+                   if cfg.num_experts else None)
+        log(f"  {arch} {cfg.layer_types} f32{' with frontend' if fe is not None else ''}: logits "
+            f"{tuple(got.shape)} card vs cpu max_abs_err={err:.3g} (|logit| <= "
+            f"{float(want.abs().max()):.3g}) in {time.perf_counter() - t0:.1f} s"
+            + (f"; experts {json.dumps(experts)}" if experts else ""))
         if not (ok and err <= LOGITS_ATOL):
             raise AssertionError(f"{arch}: card logits differ from the CPU's by {err} "
                                  f"(atol {LOGITS_ATOL}), finite/shape ok={ok}")
-        errs[arch] = err
-        del model
+        out[arch] = {"max_abs_err": err, **({"experts": experts} if experts else {})}
+        del model, seen
     torch.cuda.empty_cache()
-    return errs
+    return out
 
 
 def token_embed(tokens, vocab: int) -> np.ndarray:
@@ -1004,9 +1086,11 @@ def token_embed(tokens, vocab: int) -> np.ndarray:
     return np.stack([np.bincount(t, minlength=vocab) for t in tokens]).astype(float)
 
 
-def lm_route_phase(dev) -> dict:
-    """Three full-width bf16 arms on the card, calibrated on a 256-query
-    history and routed over two 64-query batches with ``use_kernel=True``.
+def lm_route_phase(dev, archs=ARCHS, seed: int = 100) -> dict:
+    """Full-width bf16 arms of ``archs`` on the card, calibrated on a 256-query
+    history and routed over two 64-query batches with ``use_kernel=True``;
+    ``belief_aggregate`` and every model kernel the arms' layers run
+    (``needed_kernels``) must launch.
     The launch counters are zeroed before and read after calibration and the
     two routes; the checks that follow run after the read.
 
@@ -1014,7 +1098,8 @@ def lm_route_phase(dev) -> dict:
     stops before its first wave and no arm would run inside a route. So the
     calibration table scores each arm against the arms' own answers in turn
     (history query i takes arm i mod 3's answer): every arm calibrates above
-    chance and the routes invoke arms wave by wave. Accuracy against the
+    chance and the routes invoke arms wave by wave (query i takes arm i mod
+    the pool's size). Accuracy against the
     task's labels is printed beside it (near 1/K: a smoke, not a quality
     check)."""
     from repro_torch.configs import get_config
@@ -1027,8 +1112,8 @@ def lm_route_phase(dev) -> dict:
     K, SEQ, VOCAB, N_HIST = 4, 128, 512, 256
     t0 = time.perf_counter()
     cls_ids = make_token_task(K, SEQ, VOCAB, n=1, seed=0)["class_token_ids"]
-    arms = [LMArm(arch, LM(get_config(arch), device=dev, seed=100 + i), cls_ids,
-                  tokens_per_query=SEQ) for i, arch in enumerate(ARCHS)]
+    arms = [LMArm(arch, LM(get_config(arch), device=dev, seed=seed + i), cls_ids,
+                  tokens_per_query=SEQ) for i, arch in enumerate(archs)]
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     log(f"  init: {sum(p.numel() for a in arms for p in a.model.parameters()) / 1e9:.2f} B "
@@ -1069,9 +1154,9 @@ def lm_route_phase(dev) -> dict:
         "mc_correctness_grouped": ops.mc_correctness_grouped.launches,
     }
     main_s = time.perf_counter() - t0
-    log(f"  calibrate (256 queries x 3 arms) + 2 routes of 64 in {main_s:.1f} s; "
+    log(f"  calibrate (256 queries x {len(arms)} arms) + 2 routes of 64 in {main_s:.1f} s; "
         f"launches {launches}")
-    for name in ("flash_attention", "rglru_scan", "mamba_scan", "belief_aggregate"):
+    for name in needed_kernels(archs) | {"belief_aggregate"}:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was never launched on the LM-arm route")
     for a, arm in enumerate(arms):
@@ -1101,7 +1186,7 @@ def lm_route_phase(dev) -> dict:
     compare_plans(router, cpu_router)
     log(f"  routes repeat exactly; {len(router.selector._cache)} plans equal the CPU planner's "
         f"bitwise")
-    sched_launches = lm_scheduler_check(router, work, results)
+    sched_launches = lm_scheduler_check(router, work, results, archs)
     lm_fault_check(router, arms, work[1])
     breakdown = {arm.name: forward_breakdown(arm, work[0][0]) for arm in arms}
     for name, b in breakdown.items():
@@ -1122,13 +1207,15 @@ def admission_groups(budgets, n: int):
     return [np.flatnonzero(budgets == budgets[i]) for i in np.sort(first)]
 
 
-def lm_scheduler_check(router, work, results) -> dict:
+def lm_scheduler_check(router, work, results, archs) -> dict:
     """The LM-arm route's two batches through a ``BatchScheduler``
     (``max_batch`` 64, ``max_inflight`` 2, no faults, no labels): with
     nothing to fold, each admission group routes as the router routes that
     group alone, so predictions, costs and stop waves equal the router's
     own routes of the same groups (the uniform batch: its route above).
-    Returns the model kernels' launches of the scheduler's run."""
+    Returns the model kernels' launches of the scheduler's run;
+    ``belief_aggregate`` and the kernels the layers of ``archs`` run must
+    have launched."""
     from repro_torch.kernels import ops
     from repro_torch.serving import BatchScheduler
 
@@ -1154,19 +1241,19 @@ def lm_scheduler_check(router, work, results) -> dict:
     log(f"  scheduler (max_batch 64, max_inflight 2): both batches equal the router's routes of "
         f"their admission groups; groups {st['batches']}, planes jit={st['spec_jit']} "
         f"ref={st['spec_reference']}, inflight peak {st['inflight_peak']}; launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in needed_kernels(archs) | {"belief_aggregate"}:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was never launched through the scheduler")
     return launches
 
 
 def lm_fault_check(router, arms, batch) -> None:
-    """The mixed-budget batch (whose plans lead with smollm on some rows)
-    with faults on smollm (timeout 0.3, error 0.2): failed cells are never
-    invoked, so smollm classifies exactly the scheduled, unfailed cells of
-    its arm (its forwards counted row by row); the failures the wavefront
-    attempted are smollm's alone, their slots re-routed in-wave, and the
-    outputs stay well formed."""
+    """The mixed-budget batch (whose plans lead with the pool's first,
+    cheapest arm on some rows) with faults on that arm (timeout 0.3, error
+    0.2): failed cells are never invoked, so it classifies exactly the
+    scheduled, unfailed cells of its arm (its forwards counted row by row);
+    the failures the wavefront attempted are its alone, their slots
+    re-routed in-wave, and the outputs stay well formed."""
     from repro_torch.distributed.fault import FAULT_ERROR, FAULT_TIMEOUT, FaultPolicy
 
     q, e, b = batch
@@ -1186,7 +1273,7 @@ def lm_fault_check(router, arms, batch) -> None:
     failed = (codes == FAULT_TIMEOUT) | (codes == FAULT_ERROR)
     want = int(((sched_T == 0) & ~failed).sum())
     if sum(seen) != want or failed.sum() == 0 or res.arm_fault_counts[0] == 0:
-        raise AssertionError(f"smollm classified {sum(seen)} rows under faults, want {want} "
+        raise AssertionError(f"{arms[0].name} classified {sum(seen)} rows under faults, want {want} "
                              f"({int(failed.sum())} cells failed)")
     ok = (np.all((res.predictions >= 0) & (res.predictions < router.num_classes))
           and np.all(res.costs <= np.asarray(b) + 1e-15)
@@ -1194,8 +1281,9 @@ def lm_fault_check(router, arms, batch) -> None:
           and np.all(res.responses[res.invoked] >= 0))
     if not ok:
         raise AssertionError("the faulted LM batch gave malformed output")
-    log(f"  faults on smollm: {int(failed.sum())} of {int((sched_T == 0).sum())} smollm cells "
-        f"failed, smollm classified {sum(seen)} rows in {len(seen)} forwards (= the unfailed "
+    name = arms[0].name
+    log(f"  faults on {name}: {int(failed.sum())} of {int((sched_T == 0).sum())} {name} cells "
+        f"failed, {name} classified {sum(seen)} rows in {len(seen)} forwards (= the unfailed "
         f"cells); attempted failures {res.arm_fault_counts.tolist()}, served per arm "
         f"{res.arm_query_counts.tolist()}")
 
@@ -1233,12 +1321,18 @@ def flash_bound(q, k, window: int):
     return nbytes, 4.0 * hd * pairs * B * H
 
 
-def sdpa_ms(q, k, v):
+def sdpa_ms(q, k, v, window: int = 0):
     """The yardstick: one ``scaled_dot_product_attention`` call on the same
-    tensors (causal, GQA); timed here only, never called by the port."""
+    tensors (causal, GQA; a window that binds, ``0 < window < S``, as a
+    boolean ``attn_mask``); timed here only, never called by the port."""
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if 0 < window < q.shape[1]:
+        i = torch.arange(q.shape[1], device=q.device)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+        return device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                enable_gqa=True))[0]
     return device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                             enable_gqa=True))[0]
 
@@ -2171,58 +2265,88 @@ def flash_training_times(dev) -> dict:
     return out
 
 
-def smoke_train_phase(dev) -> dict:
-    """(b) The three SMOKE families in f32, the same torch-seeded weights,
-    trained on the card and on the CPU: losses per step within rel 1e-4,
-    and on the card every parameter's gradient finite and non-zero."""
+def smoke_batches(cfg, B: int, S: int, steps: int, rng) -> list:
+    """``steps`` batches of ``S`` positions: tokens, after ``frontend_len``
+    N(0, 1) frontend embeddings for frontend archs (the training CLI's
+    batches)."""
+    lf = cfg.frontend_len if cfg.frontend != "none" else 0
+    out = []
+    for _ in range(steps):
+        b = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S - lf)))}
+        if lf:
+            b["frontend_embeds"] = torch.from_numpy(
+                rng.normal(0, 1, (B, lf, cfg.d_model)).astype(np.float32))
+        out.append(b)
+    return out
+
+
+def smoke_train_phase(dev, archs=ARCHS, steps: int = SMOKE_TRAIN[2], seed: int = 80) -> dict:
+    """(b) The SMOKE configs of ``archs`` in f32, the same torch-seeded
+    weights, trained ``steps`` steps on the card and on the CPU: losses
+    per step within rel 1e-4, on the card every parameter's gradient finite
+    and non-zero and, for MoE configs, the aux loss finite and non-zero."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ops
     from repro_torch.models import LM
     from repro_torch.training import OptimizerConfig, init_train_state, make_train_step
 
-    B, S, steps = SMOKE_TRAIN
+    B, S, _ = SMOKE_TRAIN
     out = {}
     ops.reset_launch_counts()
     card_launches = dict.fromkeys(MODEL_KERNELS, 0)
-    for i, arch in enumerate(ARCHS):
+    for i, arch in enumerate(archs):
         cfg = get_smoke_config(arch)
-        rng = np.random.default_rng(80 + i)
-        batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))) for _ in range(steps)]
+        batches = smoke_batches(cfg, B, S, steps, np.random.default_rng(seed + i))
         losses = {}
         for where, side in ((dev, "card"), (torch.device("cpu"), "cpu")):
-            model = LM(cfg, device="cpu", seed=90 + i).to(where)
+            model = LM(cfg, device="cpu", seed=seed + 10 + i).to(where)
             params, opt = init_train_state(model)
             step = make_train_step(model, OptimizerConfig(lr=1e-3, warmup_steps=1))
             before = {k: getattr(ops, k).launches for k in MODEL_KERNELS}
             losses[side] = []
-            for toks in batches:
-                params, opt, m = step(params, opt, {"tokens": toks})
+            for batch in batches:
+                params, opt, m = step(params, opt, batch)
                 losses[side].append(float(m["loss"]))
             if side == "card":
                 for k in MODEL_KERNELS:
                     card_launches[k] += getattr(ops, k).launches - before[k]
-                loss, _ = model.loss({"tokens": batches[0]})
+                loss, metrics = model.loss(batches[0])
                 grads = torch.autograd.grad(loss, list(params.values()))
                 bad = [n for n, g in zip(params, grads)
                        if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
                 if bad:
                     raise AssertionError(f"{arch}: parameters without a finite non-zero gradient "
                                          f"on the card: {bad}")
+                aux = float(metrics["aux"].detach())
+                if cfg.num_experts and not (np.isfinite(aux) and aux != 0.0):
+                    raise AssertionError(f"{arch}: MoE aux loss {aux} on the card")
                 n_params = len(grads)
             del model, params, opt
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
-        log(f"  {arch} SMOKE f32, {steps} steps of {B}x{S}: losses card "
+        log(f"  {arch} SMOKE f32, {steps} steps of {B}x{S}"
+            f"{' (frontend batches)' if cfg.frontend != 'none' else ''}: losses card "
             f"{[round(v, 6) for v in losses['card']]}, max rel vs cpu {rel:.3g}; "
-            f"{n_params} parameters, every gradient finite and non-zero on the card")
+            f"{n_params} parameters, every gradient finite and non-zero on the card"
+            + (f"; aux {aux:.6g}" if cfg.num_experts else ""))
         if rel > TRAIN_LOSS_RTOL:
             raise AssertionError(f"{arch}: card losses differ from the cpu's by rel {rel}")
         out[arch] = {"card_losses": losses["card"], "cpu_losses": losses["cpu"], "max_rel": rel,
-                     "params_with_grad": n_params}
-    if min(card_launches.values()) <= 0:
+                     "params_with_grad": n_params, **({"aux": aux} if cfg.num_experts else {})}
+    if min(card_launches[k] for k in MODEL_KERNELS if k in needed_kernels(archs)) <= 0:
         raise AssertionError(f"a model kernel did not launch in SMOKE training: {card_launches}")
     out["launches"] = card_launches
     log(f"  model kernel launches in (b): {card_launches}")
     return out
+
+
+def needed_kernels(archs) -> set:
+    """The model kernels the layers of ``archs`` run: flash for attention
+    and MoE blocks, rglru_scan for recurrent ones, mamba_scan for SSM ones."""
+    from repro_torch.configs import get_smoke_config
+
+    kinds = {t for a in archs for t in get_smoke_config(a).block_pattern}
+    return ({"flash_attention"} if kinds & {"attn", "moe"} else set()) | (
+        {"rglru_scan"} if "rec" in kinds else set()) | ({"mamba_scan"} if "ssm" in kinds else set())
 
 
 def range_kernels(evt) -> list:
@@ -2513,6 +2637,207 @@ def train_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the other seven architectures of the registry
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ("h2o-danube-1.8b", "qwen1.5-110b", "starcoder2-7b", "granite-moe-1b-a400m",
+             "moonshot-v1-16b-a3b", "internvl2-2b", "musicgen-medium")
+# (c): the five that fit one card together in bf16 (about 13.6 B params), the
+# cheapest first (the fault check's arm)
+POOL_ARCHS = ("granite-moe-1b-a400m", "h2o-danube-1.8b", "starcoder2-7b", "internvl2-2b",
+              "musicgen-medium")
+QWEN_LAYERS = 8                   # (e): qwen1.5-110b's 80 layers cut to 8 (about 13.4 B params)
+FAMILY_TRAIN_STEPS = 3            # (f)
+# (label, B, S, T, H, G, hd, window): the LM-arm route's shapes (64 queries,
+# 127 tokens) of danube (hd 80, padded to the 128 template; its window 4096
+# never reached), starcoder2 (GQA ratio 9), qwen (ratio 8) and moonshot
+# (MHA at hd 128), then danube's window where it binds (S = T = 4608)
+FLASH_FAMILY_CASES = (
+    ("h2o-danube-1.8b path", 64, 127, 127, 32, 8, 80, 4096),
+    ("starcoder2-7b path", 64, 127, 127, 36, 4, 128, 0),
+    ("qwen1.5-110b path", 64, 127, 127, 64, 8, 128, 0),
+    ("moonshot-v1-16b-a3b path", 64, 127, 127, 16, 16, 128, 0),
+    ("h2o-danube-1.8b window", 1, 4608, 4608, 32, 8, 80, 4096),
+)
+
+
+def scaled_flash_excess(got, q, k, v, want, window: int) -> dict:
+    """The largest ``|got - want| / tol`` of a bf16 flash output, where
+    ``tol = 2^-8 (|want| + att(|v|))`` per element and ``att(|v|)`` is the
+    plain attention of the same scores over ``|v|`` (the f32 ``sum_j p_j
+    |v_j|`` of each output element). The kernel rounds each probability to
+    bf16 before the PV product (moving the output by at most ``2^-9 sum_j
+    p_j |v_j|``) and the output once (at most ``2^-9 |want|``; ``2^-9``
+    more of it if the row sum takes the rounded probabilities); as
+    ``att(|v|) >= |want|``, a right kernel stays at or below 3/4 of
+    ``tol``, give or take f32 rounding. Unlike an absolute
+    bound, this scales with the rows' own size: past a long window each
+    output averages thousands of keys and is about 0.03 where the first
+    rows are near 1. Reported separately for the rows before the window
+    and the rows at or past it."""
+    from repro_torch.kernels import ref
+
+    f32 = [a.float() for a in (q, k, v)]
+    scale = ref.flash_attention_ref(f32[0], f32[1], f32[2].abs(), window=window)
+    ratio = (got.float() - want).abs() / (BF16_ROUNDING * (want.abs() + scale))
+    torch.cuda.synchronize()
+    return {"rows_before_window": float(ratio[:, :window].max()),
+            "rows_past_window": float(ratio[:, window:].max())}
+
+
+def windowed_flash_check(args, got, want, window: int, label: str) -> dict:
+    """Holds a windowed case whose rows run past the window to
+    ``scaled_flash_excess`` below 1 in both row ranges, and shows that the
+    check sees the window: the kernel run with the window one key short
+    (``window - 1``) and with no window must each exceed it past the
+    window."""
+    from repro_torch.kernels import ops
+
+    excess = scaled_flash_excess(got, *args, want, window)
+    controls = {f"window {w}": scaled_flash_excess(ops.flash_attention(*args, window=w), *args,
+                                                   want, window)["rows_past_window"]
+                for w in (window - 1, 0)}
+    out = {"scaled_excess": excess, "planted_wrong_window_excess": controls}
+    log(f"  flash_attention {label}: |err| / (2^-8 (|want| + att(|v|))) max {json.dumps(excess)}; "
+        f"planted wrong windows (must exceed 1 past the window): {json.dumps(controls)}")
+    if not (max(excess.values()) < 1.0 and min(controls.values()) > 1.0):
+        raise AssertionError(f"flash_attention at {label}: scaled error {excess} (must stay "
+                             f"below 1), wrong-window controls {controls} (must exceed 1)")
+    return out
+
+
+def family_flash(dev) -> list:
+    """(a) ``flash_attention`` in bf16 at the new families' shapes against
+    the f32 plain version (within ``FLASH_BF16_ATOL``; the case whose rows
+    run past its window also within ``windowed_flash_check``'s scaled
+    bound), each timed: device ms of the wrapper's call (hd 80's
+    zero-padding copies included), the plain version, the byte / operation
+    bound of the unpadded function and SDPA."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    for i, (label, B, S, T, H, G, hd, w) in enumerate(FLASH_FAMILY_CASES):
+        args = flash_inputs(B, S, T, H, G, hd, torch.bfloat16, seed=60 + i, dev=dev)
+        shape = f"{label}: B={B} S={S} H={H} G={G} hd={hd} window={w} bf16"
+        got = ops.flash_attention(*args, window=w)
+        want = ref.flash_attention_ref(*(a.float() for a in args), window=w)
+        err = output_error("flash_attention", got, want, FLASH_BF16_ATOL, shape)
+        window_check = windowed_flash_check(args, got, want, w, shape) if 0 < w < S else {}
+        del got, want
+        b_ms, b_by = bound_ms(*flash_bound(args[0], args[1], w), BF16_OPS_PER_S)
+        ms, ms_source = device_ms(lambda: ops.flash_attention(*args, window=w))
+        plain_ms, plain_source = device_ms(lambda: ref.flash_attention_ref(*args, window=w), n=5)
+        row = {"shape": shape, "max_abs_err": err, **window_check,
+               "ms": ms, "ms_source": ms_source,
+               "plain_ms": plain_ms, "plain_ms_source": plain_source,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": sdpa_ms(*args, window=w),
+               "call_ms": median_ms(lambda: ops.flash_attention(*args, window=w))}
+        if fa.template_hd(hd) != hd:
+            row["padded_hd"] = fa.template_hd(hd)
+            row["padded_byte_share_wasted"] = 1.0 - hd / fa.template_hd(hd)
+        rows.append(row)
+        log(f"  flash_attention {shape}: {json.dumps({k: v for k, v in row.items() if k != 'shape'})}")
+        del args
+    return rows
+
+
+def big_forward(dev, cfg, seed: int) -> dict:
+    """One full-width bf16 model of ``cfg`` alone on the card, as an
+    ``LMArm`` over 64 queries of ``make_token_task(K=4, seq_len=128,
+    vocab=512)``: init time, ``classify_batch`` ms (median of 3 after one
+    warm-up), the flash launches of those calls, logits finite, peak device
+    memory; the model is freed after."""
+    from repro_torch.data import make_token_task
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.serving import LMArm
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    task = make_token_task(4, 128, 512, n=64, seed=3)
+    arm = LMArm(cfg.name, model, task["class_token_ids"], tokens_per_query=128)
+    ops.reset_launch_counts()
+    times = []
+    for _ in range(4):
+        t1 = time.perf_counter()
+        pred = arm.classify_batch(task["tokens"])           # ends in a copy to the host
+        times.append((time.perf_counter() - t1) * 1e3)
+    launches = ops.flash_attention.launches
+    with torch.inference_mode():
+        logits = model(torch.as_tensor(task["tokens"][:, :-1], device=dev).long())
+        finite = bool(torch.isfinite(logits).all())
+    out = {"layers": cfg.num_layers, "params_b": n_params / 1e9, "init_s": init_s,
+           "forward_ms": float(np.median(times[1:])), "forward_ms_all": times,
+           "flash_launches": launches, "logits_finite": finite,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "predictions_in_range": bool(((pred >= 0) & (pred < 4)).all())}
+    log(f"  {cfg.name} ({cfg.num_layers} layers, {n_params / 1e9:.2f} B bf16 params): "
+        f"{json.dumps(out)}")
+    del model, arm, logits
+    torch.cuda.empty_cache()
+    if not (finite and out["predictions_in_range"] and launches == 4 * cfg.num_layers):
+        raise AssertionError(f"{cfg.name}: forward not finite or malformed, or flash launched "
+                             f"{launches} times (want {4 * cfg.num_layers})")
+    return out
+
+
+def families_phase(dev) -> dict:
+    """Phase 17: (a)-(f) above, each timed."""
+    from repro_torch.configs import get_config
+
+    out, seconds = {}, {}
+    t = time.perf_counter()
+    log("  (a) flash_attention at the new families' shapes")
+    out["flash"] = family_flash(dev)
+    seconds["flash_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    log("  (b) one pattern unit of each new config, full width, f32: card vs cpu")
+    out["units"] = model_phase(dev, NEW_ARCHS, seed=17)
+    seconds["units_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    log(f"  (c) LM-arm pool at full width, bf16: {', '.join(POOL_ARCHS)}")
+    out["pool"] = lm_route_phase(dev, POOL_ARCHS, seed=200)
+    seconds["pool_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    log("  (d) moonshot-v1-16b-a3b alone at full width, bf16")
+    out["moonshot"] = big_forward(dev, get_config("moonshot-v1-16b-a3b"), seed=300)
+    seconds["moonshot_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    log(f"  (e) qwen1.5-110b at published width, {QWEN_LAYERS} of its 80 layers, bf16")
+    qwen = dataclasses.replace(get_config("qwen1.5-110b"), num_layers=QWEN_LAYERS)
+    out["qwen"] = {**big_forward(dev, qwen, seed=310),
+                   "reduced": {"num_layers": [80, QWEN_LAYERS]}}
+    seconds["qwen_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    log(f"  (f) the new SMOKE configs, f32, {FAMILY_TRAIN_STEPS} steps: card vs cpu")
+    out["smoke"] = smoke_train_phase(dev, NEW_ARCHS, steps=FAMILY_TRAIN_STEPS, seed=180)
+    seconds["smoke_s"] = time.perf_counter() - t
+    out["seconds"] = seconds
+    return out
+
+
+def families_summary(fam: dict, smi: str) -> dict:
+    """The ``[families]`` line: each part's headline numbers beside the
+    card's name and power limit."""
+    pool = fam["pool"]
+    return {"card": smi,
+            "units": fam["units"],
+            "pool": {k: pool[k] for k in ("forward_ms", "init_s", "main_s", "breakdown",
+                                          "launches", "scheduler_launches")},
+            "moonshot": fam["moonshot"], "qwen": fam["qwen"],
+            "smoke": {a: {k: v for k, v in fam["smoke"][a].items() if k != "cpu_losses"}
+                      for a in NEW_ARCHS},
+            "smoke_launches": fam["smoke"]["launches"], "seconds": fam["seconds"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2731,6 +3056,23 @@ def main() -> int:
                                      "smollm_135m_bf16": full["launches"][row["name"]]}
         if row["name"] == "flash_attention":
             row["training_shape"] = train["flash_training_shape"]
+    t0 = time.perf_counter()
+    log("[17 the other families: flash at their shapes, one unit each card vs cpu, a five-arm "
+        "bf16 pool routed, moonshot alone, qwen cut to 8 layers, SMOKE training card vs cpu]")
+    fam = families_phase(dev)
+    phases["families_s"] = time.perf_counter() - t0
+    log(f"[families] {json.dumps(families_summary(fam, smi))}")
+    for row in kernels:
+        if row["name"] == "flash_attention":
+            row["families"] = {
+                "by_shape": fam["flash"],
+                "pool_launches": fam["pool"]["launches"]["flash_attention"],
+                "pool_scheduler_launches": fam["pool"]["scheduler_launches"]["flash_attention"],
+                "moonshot_launches": fam["moonshot"]["flash_launches"],
+                "qwen_8_layer_launches": fam["qwen"]["flash_launches"],
+                "train_launches_smoke_f32": fam["smoke"]["launches"]["flash_attention"]}
+        if row["name"] == "belief_aggregate":
+            row["families_pool_launches"] = fam["pool"]["launches"]["belief_aggregate"]
     log(f"[earlier kernels] {json.dumps(earlier_kernels(kernels))}")
     floor = launch_floor_ms(dev)
     for row in kernels:

@@ -2,10 +2,9 @@
 
 The port's copy of ``repro/configs``. Each ported architecture has a module
 exporting ``CONFIG`` (the exact published configuration) and ``SMOKE`` (a
-reduced same-family config for CPU tests), copied verbatim. The port runs
-the dense, hybrid and SSM families; the other architectures of the JAX
-registry need blocks or frontends the port does not have yet (MoE, vision,
-audio), and asking for one raises a ``KeyError`` that says so.
+reduced same-family config for CPU tests), copied verbatim. The registry
+lists the JAX package's ten architectures in its order: the dense, MoE,
+SSM, hybrid, vision-language and audio families.
 """
 from __future__ import annotations
 
@@ -15,15 +14,17 @@ from typing import Dict, List
 from repro_torch.models.config import ModelConfig
 
 _MODULES: Dict[str, str] = {
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "internvl2-2b": "internvl2_2b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "starcoder2-7b": "starcoder2_7b",
     "smollm-135m": "smollm_135m",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "musicgen-medium": "musicgen_medium",
 }
-
-_NOT_PORTED = (
-    "moonshot-v1-16b-a3b", "granite-moe-1b-a400m", "internvl2-2b",
-    "h2o-danube-1.8b", "qwen1.5-110b", "starcoder2-7b", "musicgen-medium",
-)
 
 
 def list_archs() -> List[str]:
@@ -31,10 +32,6 @@ def list_archs() -> List[str]:
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise KeyError(
-            f"arch {arch!r} is not ported yet; the port has: {list(_MODULES)}"
-        )
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {list(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")

@@ -20,7 +20,8 @@ the port's objects from those dicts.
 
 Model-backed arms carry weights. Those cross as the JAX parameter pytree
 in nested numpy dicts — ``{"embed": {"tok"}, "final_norm", ["head":
-{"w"}], "seg{i}": {"u{j}": {name: (repeats, ...)}}}`` — which
+{"w"}], "seg{i}": {"u{j}": {name: (repeats, ...)}}}``, MoE expert stacks
+``(repeats, E, D, F)`` and QKV biases included — which
 :func:`lm_params_from_jax` unstacks into the port's per-layer layout, in
 the JAX layer order; ``lm_arm_state`` / ``lm_arm_from_state`` carry a whole
 JAX ``LMArm`` (config fields, weights, class tokens, pricing inputs).

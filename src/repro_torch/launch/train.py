@@ -5,11 +5,15 @@ fallback to the CPU), with checkpoint/restart.
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --smoke \\
         --steps 50 --batch 8 --seq 64 --device cpu
 
-``--smoke`` trains the reduced same-family config. At full width
-smollm-135m trains on one 80 GB card; recurrentgemma-9b and
-falcon-mamba-7b need about 14 bytes of training state a parameter (bf16
-weights and gradients, f32 master weights and moments), past one card,
-so they train at ``--smoke`` only. Each run resumes from the newest
+``--smoke`` trains the reduced same-family config; frontend archs
+(internvl2-2b, musicgen-medium) train on ``--seq`` positions of which
+the first ``frontend_len`` are frontend embeddings. Training state takes
+about 14 bytes a parameter (bf16 weights and gradients, f32 master
+weights and moments). By that count smollm-135m (135 M parameters)
+trains at full width on one 80 GB card, and granite-moe-1b-a400m,
+h2o-danube-1.8b, internvl2-2b and musicgen-medium (1.3-1.9 B, 19-27 GB
+of state) are within one; the 7-111 B configs are not, and train at
+``--smoke`` only. Each run resumes from the newest
 checkpoint under ``--ckpt/<config name>`` (default under the
 repository's ``build/``) and saves every ``--save-every`` steps; a resumed
 run prints ``resumed from step <n>``.
@@ -61,9 +65,15 @@ def main(argv=None) -> None:
     )
 
     rng = np.random.default_rng(0)
+    lf = cfg.frontend_len if cfg.frontend != "none" else 0
 
     def make_batch(step):
-        return {"tokens": rng.integers(0, cfg.vocab_size, (args.batch, args.seq)).astype(np.int32)}
+        """``seq - lf`` tokens, then for frontend archs ``lf`` N(0, 1)
+        frontend embeddings: the JAX launcher's draws, in its order."""
+        b = {"tokens": rng.integers(0, cfg.vocab_size, (args.batch, args.seq - lf)).astype(np.int32)}
+        if lf:
+            b["frontend_embeds"] = rng.normal(0, 1, (args.batch, lf, cfg.d_model)).astype(np.float32)
+        return b
 
     pipe = DataPipeline(make_batch)
     mgr = CheckpointManager(os.path.join(args.ckpt, cfg.name))

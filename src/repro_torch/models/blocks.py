@@ -3,11 +3,13 @@
 training alike.
 
 Each function takes the block's parameters as a name -> tensor mapping
-(the JAX names) and returns the block's output; autograd differentiates
-it (through the model kernels by their ``KernelFunction`` on the card).
-Prefill caches, the one-token decode steps, MoE blocks and the int8 KV
-cache wait for the decode and MoE slices; the ``constrain`` sharding
-annotations of the JAX package have no counterpart on one card.
+(the JAX names) and returns the block's output (``moe_block`` also its
+aux load-balancing loss); autograd differentiates it (through the model
+kernels by their ``KernelFunction`` on the card). Prefill caches, the
+one-token decode steps (``moe_block_decode`` among them) and the int8 KV
+cache wait for the decode slice; the ``constrain`` sharding annotations
+and the expert-parallel MoE of the JAX package have no counterpart on one
+card.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from .attention import attention
 from .config import ModelConfig
 from .mlp import mlp_apply, rmsnorm
+from .moe import moe_mlp
 from .rglru import rglru_gates, rglru_scan
 from .rotary import apply_rope
 from .ssm import causal_conv1d, selective_scan
@@ -50,6 +53,16 @@ def attn_sublayer(params, x: torch.Tensor, cfg: ModelConfig, *, window: int) -> 
 def attn_block(params, x: torch.Tensor, cfg: ModelConfig, *, window: int) -> torch.Tensor:
     x = x + attn_sublayer(params, rmsnorm(x, params["ln1"], cfg.norm_eps), cfg, window=window)
     return x + mlp_apply(rmsnorm(x, params["ln2"], cfg.norm_eps), params, cfg.mlp_variant)
+
+
+def moe_block(params, x: torch.Tensor, cfg: ModelConfig, *, window: int):
+    """Attention, then a top-k MoE FFN: ``(output, aux loss)``."""
+    x = x + attn_sublayer(params, rmsnorm(x, params["ln1"], cfg.norm_eps), cfg, window=window)
+    B, S, D = x.shape
+    flat = rmsnorm(x, params["ln2"], cfg.norm_eps).reshape(B * S, D)
+    out, aux = moe_mlp(flat, params["router"], params["ewg"], params.get("ewu"), params["ewd"],
+                       cfg.experts_per_token, cfg.expert_capacity_factor)
+    return x + out.reshape(B, S, D), aux
 
 
 def _ssm_inner(params, xn: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -63,7 +63,7 @@ def init_block_params(gen: torch.Generator, btype: str, cfg: ModelConfig, stack:
     def zeros(shape, dtype=torch.float32):
         return torch.zeros((stack, *shape), dtype=dtype, device=dev)
 
-    if btype == "attn":
+    if btype in ("attn", "moe"):
         p["ln1"] = zeros((D,))
         p["wq"] = dense((D, H * hd), D)
         p["wk"] = dense((D, G * hd), D)
@@ -74,10 +74,19 @@ def init_block_params(gen: torch.Generator, btype: str, cfg: ModelConfig, stack:
             p["bk"] = zeros((G * hd,), dt)
             p["bv"] = zeros((G * hd,), dt)
         p["ln2"] = zeros((D,))
-        p["wg"] = dense((D, F), D)
-        if cfg.mlp_variant == "swiglu":
-            p["wu"] = dense((D, F), D)
-        p["wd"] = dense((F, D), F)
+        gated = cfg.mlp_variant == "swiglu"
+        if btype == "attn":
+            p["wg"] = dense((D, F), D)
+            if gated:
+                p["wu"] = dense((D, F), D)
+            p["wd"] = dense((F, D), F)
+        else:
+            E = cfg.num_experts
+            p["router"] = dense((D, E), D)
+            p["ewg"] = dense((E, D, F), D)
+            if gated:
+                p["ewu"] = dense((E, D, F), D)
+            p["ewd"] = dense((E, F, D), F)
     elif btype == "ssm":
         Din, N, R, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank, cfg.ssm_conv
         p["ln"] = zeros((D,))
@@ -113,7 +122,7 @@ def init_block_params(gen: torch.Generator, btype: str, cfg: ModelConfig, stack:
             p["wu"] = dense((D, F), D)
         p["wd"] = dense((F, D), F)
     else:
-        raise ValueError(f"block type {btype!r} is not ported yet")
+        raise ValueError(btype)
     return p
 
 

@@ -10,8 +10,12 @@ while grad is enabled (JAX's ``jax.checkpoint``; the numbers do not
 change), and the ``constrain`` sharding annotations have no counterpart.
 Parameters are frozen for serving; the trainer unfreezes them
 (:func:`repro_torch.training.init_train_state`). ``prefill``,
-``decode_step`` and ``init_cache`` wait for the decode slice; the loss's
-frontend and MoE branches wait for those families.
+``decode_step`` and ``init_cache`` wait for the decode slice.
+
+Frontend families (vision, audio) take precomputed frontend embeddings
+(B, Lf, D), cast to the model dtype and prepended to the token
+embeddings; MoE layers add their load-balancing aux loss, which the
+backbone sums over the layers and the loss weighs by 0.01 per layer.
 """
 from __future__ import annotations
 
@@ -45,18 +49,21 @@ class Block(nn.Module):
 
     def __init__(self, btype: str, cfg: ModelConfig, params: Dict[str, torch.Tensor]):
         super().__init__()
-        if btype not in ("attn", "ssm", "rec"):
-            raise ValueError(f"block type {btype!r} is not ported yet")
+        if btype not in ("attn", "moe", "ssm", "rec"):
+            raise ValueError(btype)
         self.btype = btype
         self.cfg = cfg
         self.params = nn.ParameterDict({k: _frozen(v) for k, v in params.items()})
 
-    def forward(self, x: torch.Tensor, window: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, window: int):
+        """``(output, aux)``: the aux loss of a MoE layer, None for the others."""
+        if self.btype == "moe":
+            return B.moe_block(self.params, x, self.cfg, window=window)
         if self.btype == "attn":
-            return B.attn_block(self.params, x, self.cfg, window=window)
+            return B.attn_block(self.params, x, self.cfg, window=window), None
         if self.btype == "ssm":
-            return B.ssm_block(self.params, x, self.cfg)
-        return B.rec_block(self.params, x, self.cfg)
+            return B.ssm_block(self.params, x, self.cfg), None
+        return B.rec_block(self.params, x, self.cfg), None
 
 
 class LM(nn.Module):
@@ -108,8 +115,14 @@ class LM(nn.Module):
             base += repeats * len(unit)
         return groups
 
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.tok[tokens]
+    def embed(self, tokens: torch.Tensor,
+              frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings (B, S, D), after the frontend embeddings (B, Lf,
+        D) cast to the model dtype where they are given."""
+        h = self.tok[tokens]
+        if frontend_embeds is not None:
+            h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
+        return h
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """(..., D) -> (..., V) over the padded vocabulary."""
@@ -123,40 +136,57 @@ class LM(nn.Module):
                 logits = (logits / c).tanh_().mul_(c)    # in place: saves a logits-sized copy
         return logits
 
-    def backbone(self, h: torch.Tensor) -> torch.Tensor:
-        """Every layer over (B, S, D); under ``cfg.remat`` and enabled grad
-        each layer's activations are recomputed in the backward."""
+    def backbone(self, h: torch.Tensor):
+        """Every layer over (B, S, D): ``(h, aux)``, aux the f32 sum of the
+        MoE layers' aux losses (0 without MoE layers). Under ``cfg.remat``
+        and enabled grad each layer's activations are recomputed in the
+        backward."""
         remat = self.cfg.remat and torch.is_grad_enabled()
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
         for layer in self.layers:
-            h = (checkpoint(layer, h, self.window, use_reentrant=False) if remat
-                 else layer(h, self.window))
-        return h
+            h, aux = (checkpoint(layer, h, self.window, use_reentrant=False) if remat
+                      else layer(h, self.window))
+            if aux is not None:
+                aux_total = aux_total + aux
+        return h, aux_total
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V) in ``cfg.dtype``."""
-        return self.logits(self.backbone(self.embed(tokens)))
+    def forward(self, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens (B, S) [after frontend embeddings (B, Lf, D)] -> logits
+        (B, Lf + S, V) in ``cfg.dtype``."""
+        h, _ = self.backbone(self.embed(tokens, frontend_embeds))
+        return self.logits(h)
 
     def loss(self, batch: Dict[str, torch.Tensor]):
-        """Next-token LM loss over ``batch["tokens"]`` (B, S): ``(loss,
-        {"nll", "aux"})``, the mean f32 cross-entropy of every position but
-        the last against the next token (padded vocab slots masked)."""
+        """Next-token LM loss: ``(loss, {"nll", "aux"})``. ``batch`` has
+        tokens (B, S_tok) and, for frontend archs, frontend_embeds (B, Lf,
+        D). ``nll`` is the mean f32 cross-entropy (padded vocab slots
+        masked) of each position against the next token: without a frontend
+        every position but the last; with one, the last frontend position
+        and every token position but the last, against the tokens. MoE
+        configs add ``0.01 * aux / num_layers`` to the loss."""
         cfg = self.cfg
-        if cfg.frontend != "none" or "frontend_embeds" in batch:
-            raise ValueError("the frontend branch of the loss is not ported yet")
-        if cfg.num_experts:
-            raise ValueError("the MoE branch of the loss is not ported yet")
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        h = self.embed(tokens)
+        fe = batch.get("frontend_embeds")
+        fe = None if fe is None else torch.as_tensor(fe, device=self.device)
+        h = self.embed(tokens, fe)
         Bsz, S = h.shape[0], h.shape[1]
+        Lf = 0 if fe is None else fe.shape[1]
         targets = torch.full((Bsz, S), IGNORE, dtype=torch.long, device=self.device)
-        targets[:, : S - 1] = tokens[:, 1:]
-        h = self.backbone(h)
+        if Lf > 0:
+            targets[:, Lf - 1: Lf - 1 + tokens.shape[1]] = tokens
+        else:
+            targets[:, : S - 1] = tokens[:, 1:]
+        h, aux = self.backbone(h)
         if cfg.loss_chunk and cfg.loss_chunk < S:
             nloss, ncount = self._chunked_xent(h, targets)
         else:
             nloss, ncount = _xent_sum(self.logits(h), targets, cfg.vocab_size)
-        loss = nloss / torch.clamp(ncount, min=1.0)
-        return loss, {"nll": loss, "aux": torch.zeros((), dtype=torch.float32, device=self.device)}
+        nll = nloss / torch.clamp(ncount, min=1.0)
+        loss = nll
+        if cfg.num_experts:
+            loss = nll + 0.01 * aux / max(len(cfg.layer_types), 1)
+        return loss, {"nll": nll, "aux": aux}
 
     def _chunked_xent(self, h: torch.Tensor, targets: torch.Tensor):
         """``(sum of nll, count)`` over ``cfg.loss_chunk`` positions at a

@@ -5,9 +5,11 @@ Each *arm* of the ensemble is an operator with a uniform interface:
 ``classify_batch(queries) -> class ids`` plus a per-query cost and a
 simulated latency. Two arm families:
 
-  * :class:`LMArm` — a model of the port (:class:`repro_torch.models.LM`)
-    classifying by the argmax over the class-signature token logits at the
-    answer position, run on the model's device;
+  * :class:`LMArm` — a model of the port (:class:`repro_torch.models.LM`,
+    any architecture of the registry) classifying by the argmax over the
+    class-signature token logits at the answer position, run on the
+    model's device; as in the JAX package, frontend archs classify from
+    their tokens alone, without frontend embeddings;
   * :class:`OracleArm` — Bernoulli oracles from the synthetic workload,
     drawing from numpy generators exactly as the reference does, so both
     packages answer the same queries identically.

@@ -33,13 +33,26 @@ def init_train_state(model: LM, comp: CompressionConfig = CompressionConfig()):
     return params, opt
 
 
+def _split_microbatches(batch: Dict[str, torch.Tensor], m: int) -> Dict[str, torch.Tensor]:
+    """Every leaf (B, ...) as (m, B / m, ...): tokens and, for frontend
+    archs, frontend_embeds split alike."""
+    def split(x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        if b % m:
+            raise ValueError(f"batch {b} not divisible by microbatches {m}")
+        return x.reshape(m, b // m, *x.shape[1:])
+
+    return {k: split(v) for k, v in batch.items()}
+
+
 def make_train_step(
     model: LM,
     opt_cfg: OptimizerConfig,
     comp_cfg: CompressionConfig = CompressionConfig(),
 ) -> Callable:
     """Build ``train_step(params, opt_state, batch)`` for ``model``;
-    ``batch["tokens"]`` is (B, S), B a multiple of
+    ``batch`` holds ``tokens`` (B, S) and, for frontend archs,
+    ``frontend_embeds`` (B, Lf, D), B a multiple of
     ``model.cfg.num_microbatches``."""
     own = dict(model.named_parameters())
     groups = model.stacked_groups()
@@ -55,19 +68,17 @@ def make_train_step(
     def train_step(params, opt_state, batch):
         load(params)
         wrt = list(own.values())
-        tokens = torch.as_tensor(batch["tokens"], device=model.device)
+        batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
         m = model.cfg.num_microbatches
         if m <= 1:
-            loss, _ = model.loss({"tokens": tokens})
+            loss, _ = model.loss(batch)
             grads = torch.autograd.grad(loss, wrt)
         else:
-            b = tokens.shape[0]
-            if b % m:
-                raise ValueError(f"batch {b} not divisible by microbatches {m}")
+            mbatches = _split_microbatches(batch, m)
             gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in wrt]
             lsum = torch.zeros((), dtype=torch.float32, device=model.device)
-            for mb in tokens.reshape(m, b // m, *tokens.shape[1:]):
-                l, _ = model.loss({"tokens": mb})
+            for i in range(m):
+                l, _ = model.loss({k: v[i] for k, v in mbatches.items()})
                 gsum = [a + g.to(torch.float32) for a, g in zip(gsum, torch.autograd.grad(l, wrt))]
                 lsum = lsum + l.detach()
             div = torch.full((), float(m), dtype=torch.float32, device=model.device)

@@ -41,9 +41,12 @@ def test_port_files_exist():
         "src/repro_torch/training/__init__.py", "src/repro_torch/checkpoint/ckpt.py",
         "src/repro_torch/checkpoint/__init__.py", "src/repro_torch/data/pipeline.py",
         "src/repro_torch/data/tokenizer.py", "src/repro_torch/launch/train.py",
-        "src/repro_torch/train_and_serve.py",
+        "src/repro_torch/train_and_serve.py", "src/repro_torch/models/moe.py",
     ):
         assert want in names
+    for module in ("h2o_danube_1_8b", "qwen1_5_110b", "starcoder2_7b", "granite_moe_1b_a400m",
+                   "moonshot_v1_16b_a3b", "internvl2_2b", "musicgen_medium"):
+        assert f"src/repro_torch/configs/{module}.py" in names
 
 
 def test_training_exports_the_reference_names():

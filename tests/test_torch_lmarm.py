@@ -1,10 +1,13 @@
 """A pool of model-backed arms on both packages: the port's ``LMArm`` and
 router against the JAX package's, on the CPU.
 
-Three small arms, one per ported family (the ``SMOKE`` configs of
-smollm-135m, recurrentgemma-9b and falcon-mamba-7b), are initialised by the
-JAX package and carried across with ``convert.lm_arm_state`` /
-``lm_arm_from_state``. Over ``make_token_task(4, 32, 64)`` — bitwise the
+Two pools of small arms, each arm a ``SMOKE`` config: one per dense,
+hybrid and SSM family (smollm-135m, recurrentgemma-9b, falcon-mamba-7b),
+and one of a MoE arm and the two frontend families' arms (granite-moe-1b-
+a400m, internvl2-2b, musicgen-medium; an ``LMArm`` classifies from its
+tokens alone, frontend archs included, as the JAX arm does). The arms are
+initialised by the JAX package and carried across with
+``convert.lm_arm_state`` / ``lm_arm_from_state``. Over ``make_token_task(4, 32, 64)`` — bitwise the
 same task on both sides — the arms must give equal class ids, which only
 means something if no query's top-2 class logits lie within the two
 packages' logit tolerance of each other: the test asserts the smallest
@@ -38,6 +41,7 @@ from repro_torch.serving import PoolEngine, ThriftRouter
 # arch -> init key; keys picked so that no query's top-2 class margin comes
 # within 100x LOGIT_TOL (random arms have margins down to 1e-5 on some keys)
 ARCHS = {"smollm-135m": 14, "recurrentgemma-9b": 18, "falcon-mamba-7b": 14}
+MOE_FRONTEND_ARCHS = {"granite-moe-1b-a400m": 9, "internvl2-2b": 28, "musicgen-medium": 20}
 K, SEQ, VOCAB = 4, 32, 64
 LOGIT_TOL = 1e-5       # |port - JAX| on any class logit; measured up to 6e-6 here
 FIELDS = ("predictions", "costs", "planned_costs", "stop_waves", "schedule", "invoked")
@@ -47,11 +51,10 @@ def _embed(tokens):
     return np.stack([np.bincount(t, minlength=VOCAB) for t in tokens]).astype(float)
 
 
-@pytest.fixture(scope="module")
-def pool():
+def _make_pool(archs):
     task = make_token_task(K, SEQ, VOCAB, n=8, seed=0)
     jax_arms = []
-    for arch, key in ARCHS.items():
+    for arch, key in archs.items():
         cfg = get_smoke_config(arch)
         model = JaxLM(cfg)
         params = jax.jit(model.init)(jax.random.key(key))
@@ -71,6 +74,16 @@ def pool():
                for side, arms in (("jax", jax_arms), ("port", port_arms))}
     return {"jax": jax_arms, "port": port_arms, "hist": hist, "answers": answers,
             "batches": batches}
+
+
+@pytest.fixture(scope="module")
+def pool():
+    return _make_pool(ARCHS)
+
+
+@pytest.fixture(scope="module")
+def moe_frontend_pool():
+    return _make_pool(MOE_FRONTEND_ARCHS)
 
 
 @pytest.mark.parametrize("k,seq,vocab,n,seed,noise", [
@@ -108,6 +121,14 @@ def _class_logits(arm, tokens, jax_side: bool) -> np.ndarray:
 def test_classify_batch_equal_with_margin(pool):
     """Equal class ids on every query the routes below can ask about, with
     every top-2 margin at least 100x the logit tolerance."""
+    _check_classify(pool)
+
+
+def test_moe_and_frontend_arms_classify_equal_with_margin(moe_frontend_pool):
+    _check_classify(moe_frontend_pool)
+
+
+def _check_classify(pool):
     tokens = np.concatenate([pool["hist"]["tokens"]] + [b[0] for b in pool["batches"]])
     for j, p in zip(pool["jax"], pool["port"]):
         want = _class_logits(j, tokens, jax_side=True)
@@ -125,13 +146,14 @@ def _routers(pool):
     """Both routers over the pool, calibrated on the history. Random arms
     answer at chance (1/K), where the planner invokes nothing, so the
     history is labelled with the arms' own JAX answers in turn (query i
-    takes arm i mod 3's answer): every arm calibrates well above chance and
-    the routes run multi-arm plans wave by wave."""
+    takes arm i mod L's answer, L the pool's size): every arm calibrates
+    well above chance and the routes run multi-arm plans wave by wave."""
+    n_arms = len(pool["jax"])
     emb = _embed(pool["hist"]["tokens"])
     assign = np.zeros(len(emb), np.int64)
     answers = pool["answers"]
     rows = np.arange(len(emb))
-    labels = answers["jax"][rows, rows % len(ARCHS)]
+    labels = answers["jax"][rows, rows % n_arms]
     tables = {side: (ans == labels[:, None]).astype(np.float64) for side, ans in answers.items()}
     np.testing.assert_array_equal(tables["port"], tables["jax"])
     ref = JaxThriftRouter(JaxPoolEngine(pool["jax"]),
@@ -146,9 +168,18 @@ def _routers(pool):
 
 @pytest.mark.parametrize("method", ["route_batch", "route_batch_reference"])
 def test_lm_pool_routes_bitwise(pool, method):
+    _check_routes(pool, method)
+
+
+@pytest.mark.parametrize("method", ["route_batch", "route_batch_reference"])
+def test_moe_and_frontend_pool_routes_bitwise(moe_frontend_pool, method):
+    _check_routes(moe_frontend_pool, method)
+
+
+def _check_routes(pool, method):
     ref, port = _routers(pool)
     assert not port.engine.pooled
-    served = np.zeros(len(ARCHS), np.int64)
+    served = np.zeros(len(pool["jax"]), np.int64)
     for tokens, emb, budget, labels in pool["batches"]:
         want = getattr(ref, method)(tokens, emb, budget)
         got = getattr(port, method)(tokens, emb, budget)

@@ -2,11 +2,13 @@
 
 Weights are made by the JAX package's ``init_params`` and carried across
 by ``repro_torch.convert.lm_params_from_jax``, so both packages run the
-same numbers. Tolerance on logits and block outputs: atol 1e-4, rtol 1e-4;
-only the order of f32 sums differs (matmul blocking, the sequential scans
-against JAX's associative and chunked scans). Measured on this CPU: the
-``SMOKE`` logits agree to 7e-7 (smollm), 2e-6 (recurrentgemma) and 1.1e-5
-(falcon-mamba).
+same numbers. Every architecture of the JAX registry is held, the
+frontend ones (internvl2, musicgen) with frontend embeddings. Tolerance on
+logits and block outputs: atol 1e-4, rtol 1e-4; only the order of f32
+sums differs (matmul blocking, the sequential scans against JAX's
+associative and chunked scans). Measured on this CPU: the ``SMOKE``
+logits agree to 7e-7 (smollm), 2e-6 (recurrentgemma), 1.1e-5
+(falcon-mamba) and at most 5.3e-6 for the seven others.
 """
 import jax
 import jax.experimental
@@ -32,7 +34,7 @@ from repro.models import ssm as jssm
 from repro_torch import configs, convert
 from repro_torch.models import LM, attention, blocks, init, mlp, rglru, rotary, ssm
 
-ARCHS = ["smollm-135m", "recurrentgemma-9b", "falcon-mamba-7b"]
+ARCHS = jconfigs.list_archs()
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -63,22 +65,31 @@ def test_configs_copied_verbatim(arch):
 
 
 def test_registry_lists_the_ported_archs_only():
-    assert sorted(configs.list_archs()) == sorted(ARCHS)
-    for arch in set(jconfigs.list_archs()) - set(ARCHS):
-        with pytest.raises(KeyError, match="not ported yet"):
-            configs.get_config(arch)
-    with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_config("no-such-model")
+    """The port's registry is the JAX package's: the same architectures in
+    the same order; an unknown name still raises. (The name is kept from
+    when the port's registry listed the three ported architectures only.)"""
+    assert configs.list_archs() == jconfigs.list_archs()
+    assert len(configs.list_archs()) == 10
+    for getter in ("get_config", "get_smoke_config"):
+        with pytest.raises(KeyError, match="unknown arch"):
+            getattr(configs, getter)("no-such-model")
 
 
 def test_forward_matches_jax(smoke):
+    """The whole model's logits; frontend archs forward with frontend
+    embeddings prepended."""
     arch, jcfg, cfg, params, pnp = smoke
-    tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 63)).astype(np.int32)
-    want = np.asarray(jax.jit(JaxLM(jcfg).forward)(params, jnp.asarray(tokens)))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 63)).astype(np.int32)
+    fe = (rng.normal(0, 1, (2, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+          if cfg.frontend != "none" else None)
+    want = np.asarray(jax.jit(JaxLM(jcfg).forward)(
+        params, jnp.asarray(tokens), None if fe is None else jnp.asarray(fe)))
     model = convert.lm_from_jax(pnp, cfg, "cpu")
     with torch.inference_mode():
-        got = model(torch.from_numpy(tokens).long())
+        got = model(torch.from_numpy(tokens).long(), None if fe is None else _t(fe))
     assert got.shape == want.shape and got.dtype == torch.float32
+    assert got.shape[1] == 63 + (0 if fe is None else cfg.frontend_len)
     _close(got, want)
 
 
@@ -113,6 +124,14 @@ def test_blocks_match_jax(smoke):
     seen = 0
     for btype in set(cfg.layer_types):
         jp, tp = _layer(pnp, cfg, btype)
+        if btype == "moe":
+            fn = jax.jit(lambda p, h: jblocks.moe_block(p, h, jcfg, window=window))
+            got, aux = blocks.moe_block(tp, _t(x), cfg, window=window)
+            want, _, want_aux = fn(jp, jnp.asarray(x))
+            _close(got, want)
+            _close(aux, want_aux)
+            seen += 1
+            continue
         if btype == "attn":
             fn = jax.jit(lambda p, h: jblocks.attn_block(p, h, jcfg, window=window)[0])
             got = blocks.attn_block(tp, _t(x), cfg, window=window)
