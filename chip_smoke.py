@@ -3,8 +3,9 @@
 batching front door, the replica plane and the serve CLI — GreedyLLM and
 the paper's baselines, its training path (gradients through the model
 kernels, the train step, the training CLI with restart, the
-train-calibrate-serve pipeline) and every architecture of its registry
-on one CUDA card and check them.
+train-calibrate-serve pipeline), every architecture of its registry and
+their prefill and decode steps with KV and recurrent caches on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -228,7 +229,30 @@ Phases:
     3 train steps each card vs CPU as in phase 16 (b), the frontend configs
     on frontend batches, the MoE configs' aux finite and non-zero. A
     ``[families]`` line prints each part's numbers beside the card's name
-    and power limit.
+    and power limit;
+18. prefill and decode — (a) every ``SMOKE`` config of the registry in
+    f32, the same weights on the card and the CPU: a prefill of 19 tokens
+    (frontend configs after frontend embeddings) with 3 extra slots, then
+    3 decode steps, the logits and every cache leaf (ring and ``pos``
+    included) card vs CPU within 1e-4 after each (the windowed rings of 16
+    wrap), the prefill's logits equal to the forward's last position on
+    the card within 2e-4; smollm's with an int8 KV cache, its scales
+    within 1e-6 and its int8 values equal but at rounding ties (the CPU's
+    ``x / scale`` within 1e-3 of a half), where one step apart; the model
+    kernels' launch counters, zeroed before the phase, must show all three
+    launched; (b) smollm-135m, recurrentgemma-9b, falcon-mamba-7b and
+    granite-moe-1b-a400m at published width in bf16, one at a time: 64
+    queries of 127 tokens prefilled with 32 extra slots, 32 greedy decode
+    steps (prefill ms, median step ms, tokens/s, peak memory, one profiled
+    step's idle share, launches and device split into attention, cuBLAS,
+    elementwise and other, and the bound per step: weights, KV cache and
+    states over the memory rate), the bf16 decode logits' gap to the
+    forward's printed beside the forward's own move under a one-ulp change
+    of 1% of its embeddings; then the decode path in f32 at published
+    width and depth (4 queries, or for recurrentgemma, whose 127 tokens are
+    inside its local window (F4), 2056 tokens at B=2, past it), 8 steps,
+    against the forward within 1e-3 of the largest logit. A ``[decode]``
+    line prints (b)'s numbers beside the card's name and power limit.
 
 Two lines before the last is a JSON object listing every kernel with its
 launches, error, bound and times — ``ms``/``plain_ms``/``library_ms`` are
@@ -250,7 +274,10 @@ the three model kernels' ``train_launches`` phase 16 (b) (SMOKE, f32) and
 ``training_shape`` its phase-16 times and its ``families`` phase 17's
 shapes, timed, and launches (the pool's route and scheduler runs,
 moonshot's and qwen's forwards, the SMOKE training), and
-``belief_aggregate``'s ``families_pool_launches`` phase 17 (c)'s; the
+``belief_aggregate``'s ``families_pool_launches`` phase 17 (c)'s, the
+three model kernels' ``decode_phase_launches`` phase 18's (by its
+prefills, by (a)'s prefills, and in the whole phase, the forwards the
+prefills and decodes are held against included); the
 two ``mc_correctness`` rows carry ``lifted``, their phase-3 cases past
 the limits of earlier versions, timed.
 ``flash_attention`` is listed at the
@@ -2838,6 +2865,486 @@ def families_summary(fam: dict, smi: str) -> dict:
             "smoke_launches": fam["smoke"]["launches"], "seconds": fam["seconds"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: prefill, decode steps and the KV / recurrent caches
+# ---------------------------------------------------------------------------
+
+DECODE_PREFILL, DECODE_STEPS = 19, 3      # (a): SMOKE, the windowed rings of 16 wrap
+DECODE_ATOL = 1e-4                       # (a): f32 logits and cache leaves, card vs CPU
+PREFILL_FORWARD_ATOL = 2e-4              # (a): prefill logits vs forward (tests/test_models.py)
+INT8_SCALE_ATOL = 1e-6                   # (a): int8 scales, card vs CPU
+INT8_TIE_WINDOW = 1e-3                   # (a): |x / scale - (n + 1/2)| of a value that may flip
+# (b): the four arms at published width in bf16, one block type each
+DECODE_ARMS = ("smollm-135m", "recurrentgemma-9b", "falcon-mamba-7b", "granite-moe-1b-a400m")
+WIDTH_QUERIES, WIDTH_PROMPT, WIDTH_STEPS = 64, 127, 32   # the LM-arm route's queries
+LONG_PREFILL = 2056                      # (b): recurrentgemma past its 2048 local window, B=2
+MOE_CHECK_CAPACITY = 8.0                 # (b): no token dropped in the check against forward
+# (b): decode logits vs forward at published width, held in f32 (the bf16
+# gap is printed beside the bf16 forward's own sensitivity to a one-ulp
+# change of 1% of its embeddings: a deep random-weight model amplifies
+# rounding, so two bf16 paths may part by as much as that change moves it)
+CHECK_QUERIES, CHECK_STEPS = 4, 8
+# (b): the f32 check's limit as a share of the largest |logit|: the mamba
+# kernel's y may part from the plain decode step by its 3e-4 tolerance per
+# layer, and 64 layers carry that to the logits (falcon-mamba-7b measured
+# 3.7e-4 of its largest logit, recurrentgemma-9b 5.4e-6, smollm-135m
+# 1.5e-6; NVIDIA H100 80GB HBM3, 700 W)
+CHECK_SHARE = 1e-3
+PERTURB_EVERY = 97                       # (b): every 97th embedding element, one bf16 ulp up
+DECODE_RANGE = "decode attention"        # profiler range around each attention decode
+# the model kernels' launches made by phase 18's prefills (not by the
+# forwards they are held against)
+PREFILL_LAUNCHES = {}
+
+
+def counted_prefill(model, *args, **kwargs):
+    """``model.prefill(*args, **kwargs)``, its model-kernel launches added to
+    ``PREFILL_LAUNCHES``."""
+    from repro_torch.kernels import ops
+
+    before = {k: getattr(ops, k).launches for k in MODEL_KERNELS}
+    out = model.prefill(*args, **kwargs)
+    for k in MODEL_KERNELS:
+        PREFILL_LAUNCHES[k] = PREFILL_LAUNCHES.get(k, 0) + getattr(ops, k).launches - before[k]
+    return out
+
+
+@contextlib.contextmanager
+def quantize_inputs():
+    """Record every ``quantize_kv`` input (prefill and decode) while it runs;
+    the list is yielded."""
+    from repro_torch.models import blocks
+
+    seen, plain = [], blocks.quantize_kv
+
+    def spy(x):
+        seen.append(x.float().cpu())
+        return plain(x)
+
+    blocks.quantize_kv = spy
+    try:
+        yield seen
+    finally:
+        blocks.quantize_kv = plain
+
+
+@contextlib.contextmanager
+def attention_range():
+    """Each attention decode (slot write, dequantize, direct attention) under
+    a ``DECODE_RANGE`` profiler range, so a trace can split it out."""
+    from repro_torch.models import blocks
+
+    plain = blocks.attn_sublayer_decode
+
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function(DECODE_RANGE):
+            return plain(*args, **kwargs)
+
+    blocks.attn_sublayer_decode = ranged
+    try:
+        yield
+    finally:
+        blocks.attn_sublayer_decode = plain
+
+
+def decode_stages(model, tokens, fe, dev) -> list:
+    """Prefill ``tokens[:, :DECODE_PREFILL]`` (after ``fe``) with
+    ``extra_slots=DECODE_STEPS`` on ``dev``, then decode the next
+    ``DECODE_STEPS`` tokens one at a time: after the prefill and after each
+    step, ``(logits, pos, [(leaf name, tensor)])`` copied to the host."""
+    def snap(logits, cache):
+        leaves = [("ring", cache["ring"])] if cache["ring"] is not None else []
+        leaves += [(f"layer {i} {k}", t) for i, layer in enumerate(cache["layers"])
+                   for k, t in layer.items()]
+        return logits.cpu(), cache["pos"], [(n, t.cpu().clone()) for n, t in leaves]
+
+    logits, cache = counted_prefill(model, tokens[:, :DECODE_PREFILL].to(dev),
+                                    None if fe is None else fe.to(dev), extra_slots=DECODE_STEPS)
+    stages = [snap(logits, cache)]
+    for t in range(DECODE_PREFILL, DECODE_PREFILL + DECODE_STEPS):
+        logits, cache = model.decode_step(cache, tokens[:, t:t + 1].to(dev))
+        stages.append(snap(logits, cache))
+    return stages
+
+
+def int8_tie_masks(model, inputs: list) -> dict:
+    """Where an int8 KV value may differ card vs CPU: per attention layer's
+    ``k``/``v`` leaf after the last step, the values whose CPU ``x / scale``
+    lies within ``INT8_TIE_WINDOW`` of a rounding boundary (the card's f32
+    sums differ from the CPU's in the last bits). ``inputs`` are the CPU's
+    ``quantize_kv`` inputs in call order: each attention layer's prefill k
+    then v, then per step each layer's token k then v."""
+    from repro_torch.models import blocks
+
+    def near(x):
+        q, scale = blocks.quantize_kv(x)
+        t = (x / scale).abs()
+        return (t - t.floor() - 0.5).abs() < INT8_TIE_WINDOW
+
+    attn = [i for i, t in enumerate(model.cfg.layer_types) if t in ("attn", "moe")]
+    calls = iter(inputs)
+    masks = {(i, n): near(next(calls)) for i in attn for n in ("k", "v")}
+    T = masks[(attn[0], "k")].shape[1]
+    for pos in range(DECODE_PREFILL, DECODE_PREFILL + DECODE_STEPS):
+        slot = blocks.decode_slot(pos, T, model.window)
+        for i in attn:
+            for n in ("k", "v"):
+                masks[(i, n)][:, slot] = near(next(calls))[:, 0]
+    return {f"layer {i} {n}": m for (i, n), m in masks.items()}
+
+
+def smoke_decode(dev) -> dict:
+    """(a) Each SMOKE config in f32, the same weights on the card and the
+    CPU: prefill ``DECODE_PREFILL`` tokens (frontend archs after frontend
+    embeddings) with ``extra_slots=DECODE_STEPS``, then decode
+    ``DECODE_STEPS`` tokens, the logits and every cache leaf card vs CPU
+    within ``DECODE_ATOL`` after the prefill and after each step; on the
+    card the prefill's logits against the forward's last position within
+    ``PREFILL_FORWARD_ATOL``. Then smollm's SMOKE config with an int8 KV
+    cache: scales within ``INT8_SCALE_ATOL``, logits within
+    ``LOGITS_ATOL``, int8 values equal but where the CPU's value lies at a
+    rounding tie, where they may differ by one step."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config, list_archs
+    from repro_torch.models import LM
+
+    out = {}
+    cases = [(a, get_smoke_config(a)) for a in list_archs()]
+    cases.append(("smollm-135m int8 kv", dataclasses.replace(get_smoke_config("smollm-135m"),
+                                                              kv_quant="int8")))
+    for i, (name, cfg) in enumerate(cases):
+        cpu = LM(cfg, device="cpu", seed=400 + i)
+        card = copy.deepcopy(cpu).to(dev)
+        rng = np.random.default_rng(400 + i)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              (2, DECODE_PREFILL + DECODE_STEPS)))
+        fe = (torch.as_tensor(rng.normal(0, 1, (2, cfg.frontend_len, cfg.d_model)),
+                              dtype=torch.float32) if cfg.frontend != "none" else None)
+        int8 = cfg.kv_quant == "int8"
+        got = decode_stages(card, tokens, fe, dev)
+        with torch.inference_mode():
+            full = card(tokens[:, :DECODE_PREFILL].to(dev),
+                        None if fe is None else fe.to(dev))[:, -1].cpu()
+        prefill_err = float((got[0][0] - full).abs().max())
+        with quantize_inputs() as seen:
+            want = decode_stages(cpu, tokens, fe, torch.device("cpu"))
+        ties = int8_tie_masks(cpu, seen) if int8 else {}
+        errs, int8_row = [], {}
+        for step, ((gl, gpos, gleaves), (wl, wpos, wleaves)) in enumerate(zip(got, want)):
+            errs.append(float((gl - wl).abs().max()))
+            if gpos != wpos or [n for n, _ in gleaves] != [n for n, _ in wleaves]:
+                raise AssertionError(f"{name}: pos or cache layout differ card vs cpu at {step}")
+            for (leaf, g), (_, w) in zip(gleaves, wleaves):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise AssertionError(f"{name}: cache leaf {leaf} is {g.dtype} "
+                                         f"{tuple(g.shape)} on the card, {w.dtype} "
+                                         f"{tuple(w.shape)} on the cpu")
+                if w.dtype == torch.int8:
+                    diff = (g.int() - w.int()).abs()
+                    if step == DECODE_STEPS:
+                        flips = diff > 0
+                        int8_row[leaf] = {"differ": int(flips.sum()),
+                                          "off_ties": int((flips & ~ties[leaf]).sum()),
+                                          "near_ties": int(ties[leaf].sum())}
+                    if int(diff.max()) > 1:
+                        raise AssertionError(f"{name}: int8 leaf {leaf} differs by "
+                                             f"{int(diff.max())} steps card vs cpu")
+                    continue
+                tol = INT8_SCALE_ATOL if leaf.endswith("scale") else DECODE_ATOL
+                e = float((g.double() - w.double()).abs().max())
+                if not e <= tol:
+                    raise AssertionError(f"{name}: cache leaf {leaf} after step {step} "
+                                         f"differs card vs cpu by {e} (atol {tol})")
+        row = {"prefill_vs_forward_err": prefill_err, "logits_err_by_step": errs,
+               "pos": got[-1][1], "ring": next((tuple(t.shape) for n, t in got[-1][2]
+                                                if n == "ring"), None)}
+        if int8:
+            row["int8"] = {k: sum(r[k] for r in int8_row.values())
+                           for k in ("differ", "off_ties", "near_ties")}
+            row["int8"]["values"] = sum(t.numel() for n, t in got[-1][2]
+                                        if t.dtype == torch.int8)
+        log(f"  {name} {cfg.layer_types}: {json.dumps(row)}")
+        tol = LOGITS_ATOL if int8 else DECODE_ATOL
+        if not (prefill_err <= PREFILL_FORWARD_ATOL and max(errs) <= tol):
+            raise AssertionError(f"{name}: prefill vs forward {prefill_err} (atol "
+                                 f"{PREFILL_FORWARD_ATOL}), card vs cpu logits {errs} (atol {tol})")
+        if int8 and row["int8"]["off_ties"]:
+            raise AssertionError(f"{name}: int8 values differ card vs cpu away from rounding "
+                                 f"ties: {row['int8']}")
+        out[name] = row
+        del cpu, card
+    return out
+
+
+def decode_bound(model, cache: dict, batch: int) -> dict:
+    """The least time of one decode step: the bytes it must move over the
+    card's memory rate — every weight once (the embedding table only for
+    the batch's rows where the head is untied; a MoE's every expert, as 64
+    tokens top-k route to all of them), each attention layer's k/v cache
+    read and one slot of it written, each recurrent and conv state read
+    and written."""
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    if model.head is not None:
+        weights -= model.tok.numel() * model.tok.element_size()
+        weights += batch * model.tok.shape[1] * model.tok.element_size()
+    kv = state = 0
+    for layer in cache["layers"]:
+        if "k" in layer:
+            for name, t in layer.items():
+                kv += t.numel() * t.element_size() * (1 + 1 / t.shape[1])
+        else:
+            state += 2 * sum(t.numel() * t.element_size() for t in layer.values())
+    nbytes = weights + kv + state
+    return {"bytes": nbytes, "weight_bytes": weights, "kv_bytes": kv, "state_bytes": state,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def decode_split(run) -> dict:
+    """One decode step under ``torch.profiler`` (card and host), begun after
+    a pause and bracketed by spin kernels: wall ms, device ms, idle share,
+    kernel launches, and the device time split into attention (every
+    kernel under the ``DECODE_RANGE`` ranges: slot writes, dequantize,
+    scores, softmax, weighted sum), cuBLAS outside them, elementwise
+    kernels and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    time.sleep(PAUSE_S)
+    with attention_range(), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+    rows = [e for e in device_events(prof) if "spin_kernel" not in e.key and e.key != DECODE_RANGE]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    attn = sum(us for e in prof.events()
+               if e.name == DECODE_RANGE and e.device_type == DeviceType.CPU
+               for _, us in range_kernels(e)) / 1e3
+    gemm = lambda k: any(m in k.lower() for m in GEMM_MARKS)
+    attn_gemm = sum(us for e in prof.events()
+                    if e.name == DECODE_RANGE and e.device_type == DeviceType.CPU
+                    for k, us in range_kernels(e) if gemm(k)) / 1e3
+    cublas = sum(e.self_device_time_total for e in rows if gemm(e.key)) / 1e3 - attn_gemm
+    attn_elementwise = sum(us for e in prof.events()
+                           if e.name == DECODE_RANGE and e.device_type == DeviceType.CPU
+                           for k, us in range_kernels(e)
+                           if not gemm(k) and "elementwise" in k.lower()) / 1e3
+    elementwise = sum(e.self_device_time_total for e in rows
+                      if not gemm(e.key) and "elementwise" in e.key.lower()) / 1e3
+    elementwise -= attn_elementwise
+    return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "launches": sum(e.count for e in rows),
+            "attention_ms": attn, "cublas_ms": cublas, "elementwise_ms": elementwise,
+            "other_ms": busy - attn - cublas - elementwise}
+
+
+def greedy_decode(model, prompt, steps: int, extra_slots: int, profile_last: bool = False):
+    """Prefill ``prompt`` then ``steps`` greedy steps (argmax over the real
+    vocabulary): ``(prefill ms, per-step ms, logits (B, steps + 1, V), the
+    fed tokens (B, steps), the last step's profile or None)``, each step
+    timed on the host clock to a synchronize; with ``profile_last`` the
+    last step runs under :func:`decode_split` instead."""
+    V = model.cfg.vocab_size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = counted_prefill(model, prompt, extra_slots=extra_slots)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out, fed, step_ms, split = [logits], [], [], None
+    for i in range(steps):
+        nxt = logits[:, :V].argmax(-1, keepdim=True)
+        fed.append(nxt)
+        if profile_last and i == steps - 1:
+            held = []
+            split = decode_split(lambda: held.append(model.decode_step(cache, nxt)[0]))
+            logits = held[0]
+        else:
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(cache, nxt)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits)
+    return prefill_ms, step_ms, torch.stack(out, 1), torch.cat(fed, 1), split
+
+
+def forward_tail(model, tokens, n: int):
+    """The forward's logits at the last ``n`` positions of ``tokens``."""
+    with torch.inference_mode():
+        h, _ = model.backbone(model.embed(tokens))
+        return model.logits(h[:, -n:])
+
+
+def decode_vs_forward(model, prompt, logits, fed) -> dict:
+    """Decode logits (the prefill's and each step's) against the forward's
+    over the prompt and the fed tokens: the largest gap, the largest
+    |logit|, and how many greedy picks agree."""
+    V = model.cfg.vocab_size
+    want = forward_tail(model, torch.cat([prompt, fed], 1), logits.shape[1])
+    gap = float((logits.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    agree = int((logits[..., :V].argmax(-1) == want[..., :V].argmax(-1)).sum())
+    return {"max_abs_err": gap, "max_abs_logit": top, "err_share": gap / top,
+            "argmax_agree": agree, "positions": int(logits.shape[0] * logits.shape[1])}
+
+
+def rounding_sensitivity(model, tokens, n: int) -> dict:
+    """How far the forward's logits at the last ``n`` positions move when
+    every ``PERTURB_EVERY``-th element of the embeddings is scaled by ``1 +
+    2^-8`` (one bf16 ulp): the largest move as a share of the largest
+    |logit|, and how many argmaxes stay."""
+    V = model.cfg.vocab_size
+    with torch.inference_mode():
+        h = model.embed(tokens)
+        want = model.logits(model.backbone(h)[0][:, -n:])
+        flat = h.view(-1)[::PERTURB_EVERY]
+        flat.copy_((flat.float() * (1.0 + 2.0 ** -8)).to(h.dtype))
+        got = model.logits(model.backbone(h)[0][:, -n:])
+    top = float(want.float().abs().max())
+    return {"err_share": float((got.float() - want.float()).abs().max()) / top,
+            "argmax_agree": int((got[..., :V].argmax(-1) == want[..., :V].argmax(-1)).sum()),
+            "positions": int(want.shape[0] * want.shape[1])}
+
+
+def width_check(dev, arch: str, seed: int, prompt) -> dict:
+    """The decode path at published width and depth in f32 (TF32 off):
+    ``CHECK_QUERIES`` of the prompts (or, for a windowed arch, whose
+    prompts are shorter than its window (F4), ``LONG_PREFILL`` random
+    tokens at B=2, past the window), ``CHECK_STEPS`` greedy steps, the
+    logits against the forward's over the same tokens within
+    ``CHECK_SHARE`` of the largest logit; MoE at capacity ``MOE_CHECK_CAPACITY``, so no token is
+    dropped."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, expert_capacity_factor=MOE_CHECK_CAPACITY)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cfg, device=dev, seed=seed)
+    if model.window > prompt.shape[1]:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        prompt = torch.randint(0, 512, (2, LONG_PREFILL), generator=g, device=dev)
+    else:
+        prompt = prompt[:CHECK_QUERIES]
+    _, _, logits, fed, _ = greedy_decode(model, prompt, CHECK_STEPS, CHECK_STEPS)
+    out = {**decode_vs_forward(model, prompt, logits, fed), "batch": int(prompt.shape[0]),
+           "prefill": int(prompt.shape[1]), "window": model.window,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def width_decode(dev, arch: str, seed: int) -> dict:
+    """(b) ``arch`` at published width in bf16 alone on the card: prefill
+    ``WIDTH_QUERIES`` queries of ``WIDTH_PROMPT`` tokens of
+    ``make_token_task`` with ``extra_slots=WIDTH_STEPS`` (timed: the median
+    of 3 after a warm-up), ``WIDTH_STEPS`` greedy steps (median step ms,
+    tokens/s), peak memory, one profiled step's split, the bound per step
+    and the decode logits' gap to the forward's over the same tokens
+    (printed: recurrentgemma's 127 tokens are shorter than its local
+    window, the F4 regime). Then :func:`width_check` holds the decode path
+    in f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_token_task
+    from repro_torch.models import LM
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    task = make_token_task(4, WIDTH_PROMPT + 1, 512, n=WIDTH_QUERIES, seed=3)
+    prompt = torch.as_tensor(task["tokens"][:, :-1], device=dev).long()
+    greedy_decode(model, prompt, 1, WIDTH_STEPS)                     # warm-up
+    _, cache = counted_prefill(model, prompt, extra_slots=WIDTH_STEPS)
+    bound = decode_bound(model, cache, WIDTH_QUERIES)
+    del cache
+    prefill_ms, step_ms = [], []
+    for rep in range(3):
+        p_ms, s_ms, logits, fed, split = greedy_decode(model, prompt, WIDTH_STEPS, WIDTH_STEPS,
+                                                       profile_last=rep == 2)
+        prefill_ms.append(p_ms)
+        step_ms += s_ms
+    step = float(np.median(step_ms))
+    gap = decode_vs_forward(model, prompt, logits, fed)
+    gap["forward_sensitivity"] = rounding_sensitivity(model, torch.cat([prompt, fed], 1),
+                                                      logits.shape[1])
+    row = {"params_b": sum(p.numel() for p in model.parameters()) / 1e9, "init_s": init_s,
+           "prefill_ms": float(np.median(prefill_ms)), "prefill_ms_all": prefill_ms,
+           "decode_step_ms": step, "decode_step_ms_spread": [min(step_ms), max(step_ms)],
+           "decode_tokens_per_s": WIDTH_QUERIES / step * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "step_profile": split, "bound": bound, "bound_share": bound["bound_ms"] / step,
+           ("bf16_f4_gap" if model.window > WIDTH_PROMPT else "bf16_gap"): gap}
+    del model, logits
+    row["f32_check"] = check = width_check(dev, arch, seed, prompt)
+    log(f"  {arch} ({cfg.num_layers} layers, {row['params_b']:.2f} B bf16 params): "
+        f"{json.dumps(row)}")
+    if not check["err_share"] <= CHECK_SHARE:
+        raise AssertionError(f"{arch}: f32 decode logits differ from the forward's by "
+                             f"{check['max_abs_err']}, {check['err_share']:.3g} of the largest "
+                             f"logit (limit {CHECK_SHARE})")
+    return row
+
+
+def decode_phase(dev) -> dict:
+    """Phase 18: (a) and (b) above, and the model kernels' launch counts
+    (zeroed before the phase; read after (a) and after the whole phase)
+    and those of the prefills alone: (a)'s prefills must launch all
+    three."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    PREFILL_LAUNCHES.clear()
+    out, seconds = {}, {}
+    t = time.perf_counter()
+    log("  (a) SMOKE, f32: prefill and decode, card vs cpu")
+    out["smoke"] = smoke_decode(dev)
+    seconds["smoke_s"] = time.perf_counter() - t
+    out["smoke_launches"] = {k: getattr(ops, k).launches for k in MODEL_KERNELS}
+    out["smoke_prefill_launches"] = dict(PREFILL_LAUNCHES)
+    out["width"] = {}
+    for i, arch in enumerate(DECODE_ARMS):
+        t = time.perf_counter()
+        log(f"  (b) {arch} at published width, bf16: prefill {WIDTH_QUERIES} x {WIDTH_PROMPT}, "
+            f"{WIDTH_STEPS} decode steps")
+        out["width"][arch] = width_decode(dev, arch, seed=500 + i)
+        seconds[f"{arch}_s"] = time.perf_counter() - t
+    out["launches"] = {k: getattr(ops, k).launches for k in MODEL_KERNELS}
+    out["prefill_launches"] = dict(PREFILL_LAUNCHES)
+    out["seconds"] = seconds
+    log(f"  launches in phase 18: {json.dumps(out['launches'])}, by its prefills "
+        f"{json.dumps(out['prefill_launches'])} (SMOKE part: {json.dumps(out['smoke_launches'])}, "
+        f"by its prefills {json.dumps(out['smoke_prefill_launches'])})")
+    for name in MODEL_KERNELS:
+        if out["smoke_prefill_launches"].get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the SMOKE prefills")
+    return out
+
+
+def decode_summary(dec: dict, smi: str) -> dict:
+    """The ``[decode]`` line: (b)'s numbers beside the card's name and power
+    limit."""
+    keys = ("prefill_ms", "decode_step_ms", "decode_tokens_per_s", "peak_memory_gb",
+            "bound", "bound_share", "step_profile", "bf16_gap", "bf16_f4_gap", "f32_check")
+    return {"card": smi, "queries": WIDTH_QUERIES, "prompt": WIDTH_PROMPT, "steps": WIDTH_STEPS,
+            "arms": {a: {k: r[k] for k in keys if k in r} for a, r in dec["width"].items()},
+            "seconds": dec["seconds"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -3073,6 +3580,18 @@ def main() -> int:
                 "train_launches_smoke_f32": fam["smoke"]["launches"]["flash_attention"]}
         if row["name"] == "belief_aggregate":
             row["families_pool_launches"] = fam["pool"]["launches"]["belief_aggregate"]
+    t0 = time.perf_counter()
+    log("[18 prefill and decode: SMOKE f32 card vs cpu for every family (int8 KV included), "
+        "four arms at published width in bf16]")
+    dec = decode_phase(dev)
+    phases["decode_s"] = time.perf_counter() - t0
+    log(f"[decode] {json.dumps(decode_summary(dec, smi))}")
+    for row in kernels:
+        if row["name"] in MODEL_KERNELS:
+            row["decode_phase_launches"] = {
+                "prefills": dec["prefill_launches"][row["name"]],
+                "smoke_f32_prefills": dec["smoke_prefill_launches"][row["name"]],
+                "phase": dec["launches"][row["name"]]}
     log(f"[earlier kernels] {json.dumps(earlier_kernels(kernels))}")
     floor = launch_floor_ms(dev)
     for row in kernels:

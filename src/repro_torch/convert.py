@@ -29,7 +29,12 @@ Training state crosses the same way: :func:`train_state_from_jax` takes
 the JAX parameter pytree and AdamW state (``m``, ``v``, ``master``,
 ``step``, ``residuals`` under a codec) and gives the port's per-layer
 parameters and its optimizer state keyed by parameter name, so both
-packages train from the same numbers.
+packages train from the same numbers. Decode caches cross as the JAX
+cache pytree in numpy (``{"pos", "ring", "segs": [{"u{j}": {leaf:
+(repeats, B, T, ...)}}]}``): :func:`cache_from_jax` unstacks it into the
+port's per-layer cache (:meth:`repro_torch.models.LM.prefill`) and
+:func:`cache_to_jax` stacks the port's back, so a decode can start from a
+JAX-made cache and the two be compared leaf by leaf.
 """
 from __future__ import annotations
 
@@ -187,3 +192,47 @@ def train_state_from_jax(params_np: Dict, opt_np: Dict, cfg) -> tuple:
     if "residuals" in opt_np:
         opt["residuals"] = named(opt_np["residuals"])
     return lm_params_from_jax(params_np, cfg), opt
+
+
+def cache_from_jax(cache_np: Dict, cfg, device="cuda") -> Dict:
+    """The port's decode cache on ``device`` from a JAX cache given as
+    nested numpy (``LM.init_cache`` or ``LM.prefill`` of the JAX package):
+    each segment's stacked leaves split into its layers, in the JAX layer
+    order; ``pos`` a Python int, ``ring`` an int32 tensor or None."""
+    layers = []
+    for si, (unit, repeats) in enumerate(cfg.segments()):
+        seg = cache_np["segs"][si]
+        for r in range(repeats):
+            for j in range(len(unit)):
+                leaves = _to_torch({k: np.asarray(v)[r] for k, v in seg[f"u{j}"].items()})
+                layers.append({k: t.to(device) for k, t in leaves.items()})
+    ring = cache_np["ring"]
+    return {"pos": int(np.asarray(cache_np["pos"])), "layers": layers,
+            "ring": None if ring is None else _to_torch(ring).to(torch.int32).to(device)}
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:                 # numpy has no bf16: jax's ml_dtypes does
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def cache_to_jax(cache: Dict, cfg) -> Dict:
+    """The JAX cache layout, in numpy, of the port's decode cache: each
+    segment's layers stacked per leaf (``(repeats, B, T, ...)``), ``pos``
+    an int32 scalar."""
+    segs, i = [], 0
+    for unit, repeats in cfg.segments():
+        seg = {}
+        for j in range(len(unit)):
+            names = cache["layers"][i + j].keys()
+            seg[f"u{j}"] = {k: np.stack([_leaf_to_numpy(cache["layers"][i + r * len(unit) + j][k])
+                                         for r in range(repeats)]) for k in names}
+        segs.append(seg)
+        i += repeats * len(unit)
+    ring = cache["ring"]
+    return {"pos": np.int32(cache["pos"]), "segs": segs,
+            "ring": None if ring is None else _leaf_to_numpy(ring)}

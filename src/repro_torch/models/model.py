@@ -9,8 +9,24 @@ segments; ``cfg.remat`` runs each layer under ``torch.utils.checkpoint``
 while grad is enabled (JAX's ``jax.checkpoint``; the numbers do not
 change), and the ``constrain`` sharding annotations have no counterpart.
 Parameters are frozen for serving; the trainer unfreezes them
-(:func:`repro_torch.training.init_train_state`). ``prefill``,
-``decode_step`` and ``init_cache`` wait for the decode slice.
+(:func:`repro_torch.training.init_train_state`).
+
+Serving one token at a time: :meth:`LM.prefill` runs the full-sequence
+blocks (through the model kernels on the card) and keeps each layer's
+cache, :meth:`LM.decode_step` runs the one-token blocks (plain torch, as
+the JAX package's decode has no Pallas kernel) and :meth:`LM.init_cache`
+makes an empty cache. A cache is ``{"pos": int, "ring": (T,) int32 or
+None, "layers": [per-layer dict]}``: ``pos`` the next token's absolute
+position, kept on the host so a slot costs no device sync; ``ring`` the
+absolute position in each attention slot (-1 empty), on the model's
+device; ``layers`` indexed like ``LM.layers`` (the JAX package stacks
+them per segment, time on dim 2; here time is dim 1 of each leaf;
+:func:`repro_torch.convert.cache_from_jax` converts). Windowed caches are
+rings of ``T = min(window, S)`` slots, as in the JAX package; a prefill
+shorter than the window therefore decodes over slot 0's key while it is
+still inside the window, a behaviour both packages share (ROADMAP F4).
+Full-attention caches get ``extra_slots`` free slots, past which the
+last slot is overwritten.
 
 Frontend families (vision, audio) take precomputed frontend embeddings
 (B, Lf, D), cast to the model dtype and prepended to the token
@@ -19,8 +35,9 @@ backbone sums over the layers and the loss weighs by 0.01 per layer.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -64,6 +81,26 @@ class Block(nn.Module):
         if self.btype == "ssm":
             return B.ssm_block(self.params, x, self.cfg), None
         return B.rec_block(self.params, x, self.cfg), None
+
+    def prefill(self, x: torch.Tensor, window: int):
+        """``(output, cache)`` over the whole sequence."""
+        if self.btype == "moe":
+            x, _, cache = B.moe_block(self.params, x, self.cfg, window=window, make_cache=True)
+            return x, cache
+        if self.btype == "attn":
+            return B.attn_block(self.params, x, self.cfg, window=window, make_cache=True)
+        if self.btype == "ssm":
+            return B.ssm_block(self.params, x, self.cfg, make_cache=True)
+        return B.rec_block(self.params, x, self.cfg, make_cache=True)
+
+    def decode(self, x: torch.Tensor, cache: B.Cache, pos: int, window: int,
+               ring: Optional[torch.Tensor]) -> torch.Tensor:
+        """One token (B, 1, D); ``cache`` is written in place."""
+        if self.btype in ("attn", "moe"):
+            fn = B.attn_block_decode if self.btype == "attn" else B.moe_block_decode
+            return fn(self.params, x, cache, self.cfg, pos, window=window, ring_pos=ring)[0]
+        fn = B.ssm_block_decode if self.btype == "ssm" else B.rec_block_decode
+        return fn(self.params, x, cache, self.cfg, pos)[0]
 
 
 class LM(nn.Module):
@@ -157,6 +194,104 @@ class LM(nn.Module):
         h, _ = self.backbone(self.embed(tokens, frontend_embeds))
         return self.logits(h)
 
+    # ------------------------------------------------------------- serving
+    def attn_cache_len(self, seq_len: int) -> int:
+        """Slots of the attention caches after a prefill of ``seq_len``
+        positions (0 without attention layers): ``min(window, seq_len)``
+        when windowed, else ``seq_len``."""
+        if not set(self.cfg.layer_types) & {"attn", "moe"}:
+            return 0
+        w = self.window
+        return min(w, seq_len) if w > 0 else seq_len
+
+    @torch.inference_mode()
+    def prefill(self, tokens: torch.Tensor, frontend_embeds: Optional[torch.Tensor] = None,
+                extra_slots: int = 1) -> Tuple[torch.Tensor, Dict]:
+        """tokens (B, S_tok) [after frontend embeddings (B, Lf, D)] ->
+        ``(next-token logits (B, V), cache)``, the cache ready for
+        :meth:`decode_step` at ``pos = Lf + S_tok``. Windowed attention
+        caches are put in ring order (position % T); full-attention caches
+        get ``extra_slots`` empty slots; int8 caches are quantized after
+        that."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        fe = None if frontend_embeds is None else torch.as_tensor(frontend_embeds,
+                                                                  device=self.device)
+        h = self.embed(tokens, fe)
+        S = h.shape[1]
+        layers = []
+        for layer in self.layers:
+            h, cache = layer.prefill(h, self.window)
+            layers.append(cache)
+        logits = self.logits(h[:, -1:])[:, 0]
+        T = self.attn_cache_len(S)
+        ring = None
+        if T:
+            if self.window > 0:
+                s = np.arange(T)
+                ring = (S - 1) - ((S - 1 - s) % T)
+                fix = lambda t: _ring_permute(t, S, T)
+            else:
+                ring = np.concatenate([np.arange(S), np.full(extra_slots, -1)])
+                fix = lambda t: _pad_slots(t, extra_slots)
+            ring = torch.as_tensor(ring, dtype=torch.int32, device=self.device)
+            for i, cache in enumerate(layers):
+                if "k" not in cache:
+                    continue
+                cache = {name: fix(t) for name, t in cache.items()}
+                if self.cfg.kv_quant == "int8":
+                    k, k_scale = B.quantize_kv(cache["k"])
+                    v, v_scale = B.quantize_kv(cache["v"])
+                    cache = {"k": k, "v": v, "k_scale": k_scale, "v_scale": v_scale}
+                layers[i] = cache
+        return logits, {"pos": S, "ring": ring, "layers": layers}
+
+    @torch.inference_mode()
+    def decode_step(self, cache: Dict, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """One token step: tokens (B, 1) -> ``(logits (B, V), cache)``. The
+        cache returned is the one given, updated in place: each layer's
+        leaves, the ring's slot for this token, and ``pos`` one on."""
+        pos, ring = cache["pos"], cache["ring"]
+        h = self.embed(torch.as_tensor(tokens, device=self.device).long())
+        for layer, layer_cache in zip(self.layers, cache["layers"]):
+            h = layer.decode(h, layer_cache, pos, self.window, ring)
+        logits = self.logits(h)[:, 0]
+        if ring is not None:
+            ring[B.decode_slot(pos, ring.shape[0], self.window)] = pos
+        cache["pos"] = pos + 1
+        return logits, cache
+
+    def init_cache(self, batch: int, cache_len: int, prefilled: int = 0) -> Dict:
+        """A zeroed cache on the model's device, its ring positions
+        consistent with ``prefilled`` tokens already in it."""
+        cfg, dev = self.cfg, self.device
+        T = self.attn_cache_len(cache_len)
+        G, hd, K = cfg.num_kv_heads, cfg.head_dim, cfg.ssm_conv
+        zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=dev)
+        layers = []
+        for btype in cfg.layer_types:
+            if btype in ("attn", "moe"):
+                if cfg.kv_quant == "int8":
+                    layers.append({"k": zeros((batch, T, G, hd), torch.int8),
+                                   "v": zeros((batch, T, G, hd), torch.int8),
+                                   "k_scale": zeros((batch, T, G, 1), torch.float32),
+                                   "v_scale": zeros((batch, T, G, 1), torch.float32)})
+                else:
+                    layers.append({"k": zeros((batch, T, G, hd), self.tok.dtype),
+                                   "v": zeros((batch, T, G, hd), self.tok.dtype)})
+            elif btype == "ssm":
+                layers.append({"conv": zeros((batch, K - 1, cfg.d_inner), self.tok.dtype),
+                               "h": zeros((batch, cfg.d_inner, cfg.ssm_state), torch.float32)})
+            else:
+                layers.append({"conv": zeros((batch, K - 1, cfg.rnn_width), self.tok.dtype),
+                               "h": zeros((batch, cfg.rnn_width), torch.float32)})
+        ring = None
+        if T:
+            s = np.arange(T)
+            rp = (prefilled - 1) - ((prefilled - 1 - s) % T)
+            rp = np.where((rp >= 0) & (rp < prefilled), rp, -1)
+            ring = torch.as_tensor(rp, dtype=torch.int32, device=dev)
+        return {"pos": prefilled, "ring": ring, "layers": layers}
+
     def loss(self, batch: Dict[str, torch.Tensor]):
         """Next-token LM loss: ``(loss, {"nll", "aux"})``. ``batch`` has
         tokens (B, S_tok) and, for frontend archs, frontend_embeds (B, Lf,
@@ -215,6 +350,20 @@ def _xent_sum(logits: torch.Tensor, targets: torch.Tensor, vocab: int):
     picked = logits.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
     mask = (targets != IGNORE).float()
     return ((lse - picked) * mask).sum(), mask.sum()
+
+
+def _ring_permute(t: torch.Tensor, S: int, T: int) -> torch.Tensor:
+    """Reorder a (B, T, ...) prefill cache leaf from sequence order (the
+    last T positions) to ring order (position % T)."""
+    s = np.arange(T)
+    src = (S - 1) - ((S - 1 - s) % T) - (S - T)
+    return t[:, torch.as_tensor(src, device=t.device)]
+
+
+def _pad_slots(t: torch.Tensor, extra: int) -> torch.Tensor:
+    """Append ``extra`` zero slots along the cache-time axis (dim 1)."""
+    pad = torch.zeros((t.shape[0], extra, *t.shape[2:]), dtype=t.dtype, device=t.device)
+    return torch.cat([t, pad], dim=1)
 
 
 def layer_param_name(i: int, name: str) -> str:

@@ -9,8 +9,9 @@ Diagonal gated linear recurrence:
 The JAX package scans with ``jax.lax.associative_scan`` (on a TPU the
 ``rglru_scan`` Pallas kernel substitutes); the port runs the recurrence
 through :func:`repro_torch.kernels.ops.rglru_scan` — the hand-written CUDA
-kernel on the card, the sequential plain version on the CPU. The one-step
-decode (``rglru_decode_step``) waits for the decode path.
+kernel on the card, the sequential plain version on the CPU (its
+``h_last`` is a prefill's decode state). Decode takes one plain step,
+:func:`rglru_decode_step`, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -49,3 +50,16 @@ def rglru_scan(
         B, _, D = log_a.shape
         h0 = torch.zeros((B, D), dtype=torch.float32, device=log_a.device)
     return ops.rglru_scan(log_a, gated, h0)
+
+
+def rglru_decode_step(
+    x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor, br: torch.Tensor,
+    bi: torch.Tensor, lam: torch.Tensor, h: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrence step: x (B, Dr), h (B, Dr) f32 -> ``(h_new in x's
+    dtype, h_new f32)``. ``h`` is updated in place (``exp(log_a) h``, then
+    ``+ gated``: the same two roundings as a fresh ``exp(log_a) * h +
+    gated``) and returned as the f32 ``h_new``."""
+    log_a, gated = rglru_gates(x, wr, wi, br, bi, lam)
+    h.mul_(torch.exp(log_a)).add_(gated)
+    return h.to(x.dtype), h

@@ -8,7 +8,8 @@ The JAX package runs a chunked ``lax.scan`` (on a TPU the ``mamba_scan``
 Pallas kernel substitutes); the port runs the fused scan
 :func:`repro_torch.kernels.ops.mamba_scan` — the hand-written CUDA kernel
 on the card, the sequential plain version on the CPU — so ``chunk`` has no
-effect. ``ssm_decode_step`` waits for the decode path.
+effect; its ``h_last`` is a prefill's decode state. Decode takes one plain
+f32 step, :func:`ssm_decode_step`, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -58,3 +59,24 @@ def selective_scan(
     their split — and it widens, scans and rounds y itself."""
     del chunk
     return ops.mamba_scan(x, dt, A, Bmat, Cmat, Dskip, h0)
+
+
+def ssm_decode_step(
+    x: torch.Tensor,        # (B, Din) single-step post-conv activation
+    dt: torch.Tensor,       # (B, Din)
+    A: torch.Tensor,        # (Din, N)
+    Bvec: torch.Tensor,     # (B, N)
+    Cvec: torch.Tensor,     # (B, N)
+    Dskip: torch.Tensor,    # (Din,)
+    h: torch.Tensor,        # (B, Din, N) f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single recurrence step for serving: ``(y (B, Din) in x's dtype,
+    h_new)``, all math in f32. ``h`` is updated in place (``a h``, then
+    ``+ dt x B``: the same two roundings as a fresh ``a * h + ...``) and
+    returned as ``h_new``."""
+    x32, dt32 = x.float(), dt.float()
+    a = torch.exp(dt32[..., None] * A.float()[None])               # (B,Din,N)
+    h.mul_(a).add_((dt32 * x32)[..., None] * Bvec[:, None, :].float())
+    y = torch.einsum("bdn,bn->bd", h, Cvec.float())
+    y = y + x32 * Dskip[None].float()
+    return y.to(x.dtype), h

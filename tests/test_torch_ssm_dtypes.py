@@ -149,23 +149,112 @@ def test_bf16_falcon_mamba_smoke_forward_matches_jax():
 # recurrentgemma) as JAX's own bf16 logits do (0.0089-0.0116,
 # 0.025-0.048), while the two f32 forwards agree to 2.2e-6. The tolerance
 # is about twice the largest measured gap; a wrong block moves logits by
-# order 1.
-BF16_LOGIT_SHARE = {"smollm-135m": 0.04, "recurrentgemma-9b": 0.10}
+# order 1. The five dense architectures added later, measured the same
+# way (frontend archs after frontend embeddings): largest gaps 1.4%
+# (h2o-danube), 1.6% (qwen), 1.15% (starcoder2), 1.4% (internvl2) and
+# 1.0% (musicgen) of the largest logit, medians 1.7-2.5 ulps.
+BF16_LOGIT_SHARE = {"smollm-135m": 0.04, "recurrentgemma-9b": 0.10,
+                    "h2o-danube-1.8b": 0.04, "qwen1.5-110b": 0.04, "starcoder2-7b": 0.04,
+                    "internvl2-2b": 0.04, "musicgen-medium": 0.04}
+
+
+def _bf16_smoke(arch, seed: int = 0):
+    """The SMOKE config of ``arch`` in bf16 on both packages, the same
+    weights (JAX's ``init`` at ``seed``), (2, 63) tokens and, for frontend
+    archs, (2, Lf, D) embeddings: ``(JAX config, port config, JAX params,
+    port model, tokens, embeddings or None)``."""
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), dtype="bfloat16")
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="bfloat16")
+    params = jax.jit(JaxLM(jcfg).init)(jax.random.key(seed))
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 63)).astype(np.int32)
+    fe = (rng.normal(0, 1, (2, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+          if cfg.frontend != "none" else None)
+    model = convert.lm_from_jax(jax.tree.map(np.asarray, params), cfg, "cpu")
+    return jcfg, cfg, params, model, tokens, fe
 
 
 @pytest.mark.parametrize("arch", sorted(BF16_LOGIT_SHARE))
 def test_bf16_smoke_forward_matches_jax(arch):
-    """The ``SMOKE`` smollm and recurrentgemma in bf16, the same weights on
-    both packages, beside the falcon-mamba case above."""
-    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), dtype="bfloat16")
-    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="bfloat16")
-    params = jax.jit(JaxLM(jcfg).init)(jax.random.key(0))
-    tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 63)).astype(np.int32)
-    want = np.asarray(jax.jit(JaxLM(jcfg).forward)(params, jnp.asarray(tokens)).astype(jnp.float32))
-    model = convert.lm_from_jax(jax.tree.map(np.asarray, params), cfg, "cpu")
+    """The ``SMOKE`` dense configs in bf16, the same weights on both
+    packages, beside the falcon-mamba case above."""
+    jcfg, cfg, params, model, tokens, fe = _bf16_smoke(arch)
+    want = np.asarray(jax.jit(JaxLM(jcfg).forward)(
+        params, jnp.asarray(tokens), None if fe is None else jnp.asarray(fe)).astype(jnp.float32))
     with torch.inference_mode():
-        got = model(torch.from_numpy(tokens).long())
+        got = model(torch.from_numpy(tokens).long(), None if fe is None else torch.from_numpy(fe))
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                atol=BF16_LOGIT_SHARE[arch] * np.abs(want).max())
+
+
+# The MoE configs' logits at the tokens routed before the first token
+# whose experts differ between the packages, as a share of their largest
+# logit: measured over seeds 0-3, at most 3.05% (granite) and 1.5%
+# (moonshot); twice the larger.
+BF16_MOE_SHARE = 0.06
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "moonshot-v1-16b-a3b"])
+def test_bf16_moe_smoke_forward_matches_jax(arch):
+    """The two MoE ``SMOKE`` configs in bf16 on the same weights. In bf16
+    the router's input (the attention block's output) differs between the
+    packages by a bf16 ulp here and there, so a token whose k-th and
+    (k+1)-th router logits are closer than that difference may pick other
+    experts (measured over seeds 0-3: 0-4 of 126 tokens a layer), and from
+    that token on the outputs part (a changed expert moves that token, and
+    the capacity ranks of every token after it in arrival order). So,
+    per MoE layer, recorded from both forwards: the tokens whose expert ids
+    are equal are counted; the port's top-k of JAX's own router logits
+    equals JAX's for every token (the selection is exact); every token of
+    the first MoE layer whose experts differ lies at such a near tie (its
+    top-k gap below its router logits' difference). The logits of the
+    tokens routed before the first differing token (arrival order, any
+    layer) are held within ``BF16_MOE_SHARE`` of their largest logit."""
+    from repro.models import blocks as jblocks
+    from repro_torch.models import blocks, router_topk
+
+    jcfg, cfg, params, model, tokens, _ = _bf16_smoke(arch)
+    k = cfg.experts_per_token
+    jseen, tseen = [], []
+    jplain, tplain = jblocks.moe_mlp, blocks.moe_mlp
+
+    def jspy(x, rw, *rest):
+        jax.debug.callback(lambda a, b: jseen.append((np.asarray(a, np.float32),
+                                                      np.asarray(b, np.float32))),
+                           x, rw, ordered=True)
+        return jplain(x, rw, *rest)
+
+    def tspy(x, rw, *rest):
+        tseen.append((x.float().numpy(), rw.float().numpy()))
+        return tplain(x, rw, *rest)
+
+    jblocks.moe_mlp, blocks.moe_mlp = jspy, tspy
+    try:
+        want = np.asarray(jax.jit(JaxLM(jcfg).forward)(params, jnp.asarray(tokens))
+                          .astype(jnp.float32))
+        with torch.inference_mode():
+            got = model(torch.from_numpy(tokens).long()).float().numpy()
+    finally:
+        jblocks.moe_mlp, blocks.moe_mlp = jplain, tplain
+    assert len(jseen) == len(tseen) == cfg.num_layers
+    differ = np.zeros(tokens.size, bool)
+    same = []
+    for layer, ((jx, jw), (tx, tw)) in enumerate(zip(jseen, tseen)):
+        jl, tl = jx @ jw, tx @ tw
+        jids = np.asarray(jax.lax.top_k(jnp.asarray(jl), k)[1])
+        tids = router_topk(torch.from_numpy(tl), k)[0].numpy()
+        np.testing.assert_array_equal(router_topk(torch.from_numpy(jl), k)[0].numpy(), jids)
+        off = ~(jids == tids).all(axis=1)
+        same.append(int((~off).sum()))
+        if layer == 0:
+            top = -np.sort(-jl, axis=1)
+            gap = top[:, k - 1] - top[:, k]
+            assert (gap[off] < np.abs(jl - tl)[off].max(axis=1)).all()
+        differ |= off
+    first = int(np.argmax(differ)) if differ.any() else differ.size
+    assert sum(same) >= 0.95 * tokens.size * cfg.num_layers, same
+    before = (np.arange(tokens.size) < first).reshape(tokens.shape)
+    np.testing.assert_allclose(got[before], want[before], rtol=0,
+                               atol=BF16_MOE_SHARE * np.abs(want[before]).max())
