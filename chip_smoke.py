@@ -252,7 +252,28 @@ Phases:
     width and depth (4 queries, or for recurrentgemma, whose 127 tokens are
     inside its local window (F4), 2056 tokens at B=2, past it), 8 steps,
     against the forward within 1e-3 of the largest logit. A ``[decode]``
-    line prints (b)'s numbers beside the card's name and power limit.
+    line prints (b)'s numbers beside the card's name and power limit;
+19. launch tools — (a) the dry run's CLI (``python -m
+    repro_torch.launch.dryrun``, called in process, its JSON records under
+    ``build/dryrun``) for every architecture's ``decode_32k`` cell on the
+    16x16 layout and for smollm-135m's ``train_4k``, on the meta device:
+    per-device GB, ``fits_hbm``, the three roofline terms with the H100's
+    ``HW`` and the counted FLOPs beside the analytic count, a line each;
+    (b) the roofline of the shapes phases 16 and 18 timed on this card
+    (smollm-135m training at 8 x 512, the four decode arms at B=64 with
+    127 + 32 cache slots): the measured median ms and peak GB beside
+    ``roofline_terms(chips=1, HW)``'s ``step_s_lower_bound`` and
+    ``analytic_memory(dp=1, tp=1)["total"]``, printed, not gated
+    (``[roofline]`` line); (c) expert parallelism at granite-moe-1b-a400m's
+    published width and depth in f32 over a world-size-1 NCCL
+    ``DeviceMesh`` (data 1, model 1), on (b)'s 64 x 127 token batch, at
+    capacity factor E / k (no token dropped on either path): the forward
+    under ``cfg.moe_ep`` with the rules active sends each of the 24 MoE
+    layers through ``moe_mlp_ep`` (counted) and its logits equal the
+    dense forward's within 1e-4 (``flash_attention``'s launches in the
+    two forwards go on its row as ``launch_phase_launches``); the first MoE layer's own input and
+    weights through ``moe_mlp_ep`` equal ``moe_mlp`` within 1e-5 (output
+    and aux); (d) ``replica_mesh(4)`` is None on one card.
 
 Two lines before the last is a JSON object listing every kernel with its
 launches, error, bound and times — ``ms``/``plain_ms``/``library_ms`` are
@@ -309,9 +330,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
+# the card's memory rate and dense bf16 tensor-core rate: HW["hbm_bw"] and
+# HW["peak_flops"] of repro_torch.launch.mesh, read in main()
+HBM_BYTES_PER_S = BF16_OPS_PER_S = None
 F32_OPS_PER_S = 67e12            # H100 SXM f32 rate outside the tensor cores
-BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
 FLASH_BF16_ATOL = 2e-2           # one bf16 rounding of the output (tests/test_kernels.py)
 FLASH_F32_ATOL = 2e-5
 RGLRU_ATOL = 1e-5
@@ -3245,6 +3267,15 @@ def width_check(dev, arch: str, seed: int, prompt) -> dict:
     return out
 
 
+def width_prompt(dev) -> torch.Tensor:
+    """(b)'s prompts: ``WIDTH_QUERIES`` queries of ``WIDTH_PROMPT`` tokens
+    of ``make_token_task``."""
+    from repro_torch.data import make_token_task
+
+    task = make_token_task(4, WIDTH_PROMPT + 1, 512, n=WIDTH_QUERIES, seed=3)
+    return torch.as_tensor(task["tokens"][:, :-1], device=dev).long()
+
+
 def width_decode(dev, arch: str, seed: int) -> dict:
     """(b) ``arch`` at published width in bf16 alone on the card: prefill
     ``WIDTH_QUERIES`` queries of ``WIDTH_PROMPT`` tokens of
@@ -3256,7 +3287,6 @@ def width_decode(dev, arch: str, seed: int) -> dict:
     window, the F4 regime). Then :func:`width_check` holds the decode path
     in f32."""
     from repro_torch.configs import get_config
-    from repro_torch.data import make_token_task
     from repro_torch.models import LM
 
     cfg = get_config(arch)
@@ -3266,8 +3296,7 @@ def width_decode(dev, arch: str, seed: int) -> dict:
     model = LM(cfg, device=dev, seed=seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    task = make_token_task(4, WIDTH_PROMPT + 1, 512, n=WIDTH_QUERIES, seed=3)
-    prompt = torch.as_tensor(task["tokens"][:, :-1], device=dev).long()
+    prompt = width_prompt(dev)
     greedy_decode(model, prompt, 1, WIDTH_STEPS)                     # warm-up
     _, cache = counted_prefill(model, prompt, extra_slots=WIDTH_STEPS)
     bound = decode_bound(model, cache, WIDTH_QUERIES)
@@ -3345,6 +3374,190 @@ def decode_summary(dec: dict, smi: str) -> dict:
             "seconds": dec["seconds"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the launch tools
+# ---------------------------------------------------------------------------
+
+DRYRUN_OUT = ROOT / "build" / "dryrun"
+DRYRUN_TRAIN_ARCH = "smollm-135m"         # (a): its train_4k cell, after every arch's decode_32k
+EP_ARCH = "granite-moe-1b-a400m"          # (c): at published width and depth, f32
+EP_ATOL = 1e-5                            # (c): one layer's output and aux, card EP vs card dense
+EP_FORWARD_ATOL = 1e-4                    # (c): the logits, EP forward vs dense forward
+REPLICAS_PROBE = 4                        # (d)
+
+
+def dryrun_cells() -> list:
+    """(a) The dry run's CLI on meta, in process: every arch's
+    ``decode_32k`` cell at 16x16, then smollm-135m's ``train_4k``."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import dryrun
+
+    cells = [(a, "decode_32k") for a in list_archs()] + [(DRYRUN_TRAIN_ARCH, "train_4k")]
+    rows = []
+    for arch, shape in cells:
+        (rec,) = dryrun.main(["--arch", arch, "--shape", shape, "--out", str(DRYRUN_OUT)])
+        if "error" in rec:
+            raise AssertionError(f"dry run of {arch} x {shape}: {rec['error']}\n"
+                                 f"{rec['traceback']}")
+        t = rec["roofline"]
+        row = {"arch": arch, "shape": shape, "gb_per_device": rec["analytic_memory"]["total"] / 1e9,
+               "fits_hbm": rec["fits_hbm"], "compute_ms": t["compute_s"] * 1e3,
+               "memory_ms": t["memory_s"] * 1e3, "collective": rec["collective_note"],
+               "bottleneck": t["bottleneck"], "counted_flops": rec["counted_flops"],
+               "analytic_flops": rec["analytic_flops_total"],
+               "counted_share": rec["counted_flops"] / rec["analytic_flops_total"],
+               "argument_gb_per_device": rec["argument_bytes_per_device"] / 1e9,
+               "trace_s": rec["trace_s"]}
+        log(f"  [dryrun] {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def roofline_row(arch: str, shape, measured_ms: float, peak_gb: float) -> dict:
+    """(b) One timed shape's measured ms and peak GB beside its one-card
+    roofline bound and analytic memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import HW
+    from repro_torch.launch.roofline import (analytic_bytes, analytic_flops, analytic_memory,
+                                             roofline_terms)
+
+    cfg = get_config(arch)
+    terms = roofline_terms(analytic_flops(cfg, shape)["total"],
+                           analytic_bytes(cfg, shape)["total"], 0.0, 1, HW)
+    mem_gb = analytic_memory(cfg, shape, dp=1, tp=1)["total"] / 1e9
+    bound_ms = terms["step_s_lower_bound"] * 1e3
+    return {"arch": arch, "kind": shape.kind, "batch": shape.global_batch,
+            "seq": shape.seq_len, "measured_ms": measured_ms, "bound_ms": bound_ms,
+            "bottleneck": terms["bottleneck"], "measured_over_bound": measured_ms / bound_ms,
+            "peak_gb": peak_gb, "analytic_gb": mem_gb, "peak_over_analytic": peak_gb / mem_gb}
+
+
+def roofline_shares(full: dict, width: dict) -> dict:
+    """(b) Phase 16 (c)'s training step and phase 18 (b)'s decode steps
+    beside their bounds (printed, not gated)."""
+    from repro_torch.models import ShapeConfig
+
+    rows = [roofline_row("smollm-135m",
+                         ShapeConfig("phase16", full["seq"], full["batch"], "train"),
+                         full["step_ms_median"], full["peak_memory_gb"])]
+    for arch, r in width.items():
+        shape = ShapeConfig("phase18", WIDTH_PROMPT + WIDTH_STEPS, WIDTH_QUERIES, "decode")
+        rows.append(roofline_row(arch, shape, r["decode_step_ms"], r["peak_memory_gb"]))
+    for row in rows:
+        log(f"  [roofline] {json.dumps(row)}")
+    return {"rows": rows}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ep_check(dev) -> dict:
+    """(c) Expert parallelism at ``EP_ARCH``'s published width and depth in
+    f32 over a world-size-1 NCCL ``DeviceMesh``, on phase 18's token batch,
+    at capacity factor E / k: the dense capacity is then every token, and
+    the EP path's two stages hold at least as many, so neither drops one.
+    One model runs the forward twice: without sharding rules (the dense
+    ``moe_mlp``), then under the rules, where every MoE layer must go
+    through ``moe_mlp_ep`` (each call counted). The first MoE layer's own
+    input and weights, as the forward handed them over, then go through
+    ``moe_mlp_ep`` and ``moe_mlp`` alone."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import AxisRules, use_rules
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM, blocks
+    from repro_torch.models.moe import moe_mlp, moe_mlp_ep
+
+    cfg = get_config(EP_ARCH)
+    cfg = dataclasses.replace(cfg, dtype="float32", moe_ep=True,
+                              expert_capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    tokens = width_prompt(dev)
+    calls = []
+    dispatch = blocks.moe_mlp_ep
+
+    def counted(*args, **kwargs):
+        calls.append(None if calls else args)           # keep the first layer's inputs
+        return dispatch(*args, **kwargs)
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        model = LM(cfg, device=dev, seed=19)
+        flash_before = ops.flash_attention.launches
+        blocks.moe_mlp_ep = counted
+        try:
+            with torch.no_grad():
+                dense = model(tokens)
+                if calls:
+                    raise AssertionError("the forward without sharding rules called moe_mlp_ep")
+                with use_rules(AxisRules(mesh)):
+                    ep_logits = model(tokens)
+        finally:
+            blocks.moe_mlp_ep = dispatch
+        flash_launches = ops.flash_attention.launches - flash_before
+        x, rw, wg, wu, wd, k, cap = calls[0][:7]
+        with torch.no_grad():
+            y, aux = moe_mlp_ep(x, rw, wg, wu, wd, k, cap, mesh)
+            y_d, aux_d = moe_mlp(x, rw, wg, wu, wd, k, cap)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    moe_layers = cfg.layer_types.count("moe")
+    out = {"arch": EP_ARCH, "dtype": "float32", "tokens": list(tokens.shape),
+           "capacity_factor": cfg.expert_capacity_factor, "moe_layers": moe_layers,
+           "ep_calls": len(calls), "flash_launches": flash_launches, "y_err": float((y - y_d).abs().max()),
+           "y_max": float(y_d.abs().max()), "aux_err": float((aux - aux_d).abs()),
+           "forward_err": float((ep_logits - dense).abs().max()),
+           "forward_max_logit": float(dense.abs().max()),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t0}
+    del model, dense, ep_logits, calls, x, y, y_d
+    torch.cuda.empty_cache()
+    log(f"  [moe_ep] world 1, NCCL: {json.dumps(out)}")
+    if out["flash_launches"] <= 0:
+        raise AssertionError(f"the two {EP_ARCH} forwards never launched flash_attention")
+    if out["ep_calls"] != moe_layers:
+        raise AssertionError(f"{out['ep_calls']} moe_mlp_ep calls in the forward under "
+                             f"cfg.moe_ep, want one per MoE layer ({moe_layers})")
+    if not (out["y_err"] <= EP_ATOL and out["aux_err"] <= EP_ATOL):
+        raise AssertionError(f"moe_mlp_ep on the card differs from moe_mlp: {out}")
+    if not out["forward_err"] <= EP_FORWARD_ATOL:
+        raise AssertionError(f"{EP_ARCH}'s forward under moe_ep differs from the dense one: {out}")
+    return out
+
+
+def launch_phase(dev, full: dict, width: dict) -> dict:
+    """Phase 19: (a)-(d) above."""
+    from repro_torch.distributed import replica_mesh
+
+    out = {}
+    t = time.perf_counter()
+    log("  (a) the dry run on meta: decode_32k for every arch at 16x16, smollm-135m train_4k")
+    out["dryrun"] = dryrun_cells()
+    out["dryrun_s"] = time.perf_counter() - t
+    log("  (b) measured vs roofline bound: phase 16's training step, phase 18's decode steps")
+    out["roofline"] = roofline_shares(full, width)
+    log(f"  (c) {EP_ARCH} at published width, f32: the forward under moe_ep over a "
+        f"world-size-1 NCCL DeviceMesh vs the dense forward, one layer's moe_mlp_ep vs moe_mlp")
+    out["ep"] = ep_check(dev)
+    mesh = replica_mesh(REPLICAS_PROBE, dev)
+    log(f"  (d) replica_mesh({REPLICAS_PROBE}) on {torch.cuda.device_count()} card(s): {mesh}")
+    if torch.cuda.device_count() == 1 and mesh is not None:
+        raise AssertionError(f"replica_mesh({REPLICAS_PROBE}) on one card: {mesh}, want None")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -3354,6 +3567,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global HBM_BYTES_PER_S, BF16_OPS_PER_S
+    from repro_torch.launch.mesh import HW
+    HBM_BYTES_PER_S, BF16_OPS_PER_S = HW["hbm_bw"], HW["peak_flops"]
     # f32 results are compared below: full f32 matmuls and convolutions, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3592,6 +3808,15 @@ def main() -> int:
                 "prefills": dec["prefill_launches"][row["name"]],
                 "smoke_f32_prefills": dec["smoke_prefill_launches"][row["name"]],
                 "phase": dec["launches"][row["name"]]}
+    t0 = time.perf_counter()
+    log("[19 launch tools: the dry run on meta, the roofline of phases 16 and 18, expert "
+        "parallelism over NCCL, replica_mesh]")
+    launch = launch_phase(dev, full, dec["width"])
+    phases["launch_s"] = time.perf_counter() - t0
+    for row in kernels:
+        if row["name"] == "flash_attention":
+            row["launch_phase_launches"] = launch["ep"]["flash_launches"]
+    log(f"[roofline] {json.dumps({'card': smi, **launch['roofline']})}")
     log(f"[earlier kernels] {json.dumps(earlier_kernels(kernels))}")
     floor = launch_floor_ms(dev)
     for row in kernels:

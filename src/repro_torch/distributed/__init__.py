@@ -1,8 +1,8 @@
 """Distribution of the port: fault tolerance (the training half —
 heartbeats, elastic re-mesh planning, the checkpoint/restart driver — and
-the serving fault-injection plane), straggler tracking and the replica
-plane's device assignment (the sharding rules and ``replica_mesh`` have no
-counterpart yet)."""
+the serving fault-injection plane), straggler tracking, the logical-axis
+sharding rules with their parameter, cache and batch specs, and the
+replica plane's device assignment and mesh."""
 from .fault import (
     FAULT_DEGRADE,
     FAULT_ERROR,
@@ -20,12 +20,34 @@ from .fault import (
     plan_elastic_remesh,
     rebatch_for_mesh,
 )
-from .sharding import replica_devices
+from .sharding import (
+    CACHE_LOGICAL,
+    DEFAULT_RULES,
+    PARAM_LOGICAL,
+    ZERO3_LEAVES,
+    AxisRules,
+    Mesh,
+    Sharding,
+    active_rules,
+    batch_specs,
+    cache_specs,
+    constrain,
+    constrain_params,
+    mesh_shape,
+    param_specs,
+    replica_devices,
+    replica_mesh,
+    replicated,
+    use_rules,
+)
 
 __all__ = [
     "FAULT_OK", "FAULT_TIMEOUT", "FAULT_ERROR", "FAULT_DEGRADE", "PROBE_WAVE",
     "ArmFaultSpec", "FaultPolicy", "StragglerMitigator",
     "failover_gather", "attempted_failures", "observed_faults",
     "HeartbeatMonitor", "plan_elastic_remesh", "rebatch_for_mesh", "FaultTolerantDriver",
-    "replica_devices",
+    "replica_devices", "replica_mesh",
+    "DEFAULT_RULES", "ZERO3_LEAVES", "PARAM_LOGICAL", "CACHE_LOGICAL", "Mesh", "Sharding",
+    "AxisRules", "mesh_shape", "use_rules", "active_rules", "constrain", "constrain_params",
+    "param_specs", "cache_specs", "batch_specs", "replicated",
 ]

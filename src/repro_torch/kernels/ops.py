@@ -14,6 +14,14 @@ inputs. The JAX package has no backward kernel either (its
 ``pl.pallas_call`` sites are all forward; ``jax.grad`` differentiates the
 pure-jnp oracles). On the CPU the plain versions run under ordinary
 autograd.
+
+On the ``meta`` device (shapes and dtypes only: the launch tools' specs
+and dry run) the two scans return empty outputs of the shapes and dtypes
+the kernel gives, ``h_last`` included: nothing is computed there, so
+nothing is launched or counted, and the plain scans' loops over time are
+not run either. Attention on meta never reaches ``flash_attention``
+(``models/attention.py`` sends it only CUDA tensors; meta takes the plain
+blocked attention). The other kernels take no meta tensor.
 """
 from __future__ import annotations
 
@@ -161,6 +169,9 @@ def _launch_rglru(log_a, gated, h0):
 def rglru_scan(log_a, gated, h0):
     """Diagonal linear recurrence in f32: ``(h (B, S, D), h_last (B, D))``."""
     f32 = lambda t: t.to(torch.float32).contiguous()
+    if log_a.device.type == "meta":
+        return (log_a.new_empty(log_a.shape, dtype=torch.float32),
+                log_a.new_empty(h0.shape, dtype=torch.float32))
     if _device_kind(log_a) == "cpu":
         return ref.rglru_scan_ref(f32(log_a), f32(gated), f32(h0))
     return KernelFunction.apply(_launch_rglru, ref.rglru_scan_ref, {},
@@ -183,6 +194,9 @@ def mamba_scan(x, dt, A, Bmat, Cmat, Dskip, h0=None):
     float dtype is widened here, exactly), the recurrence in f32,
     ``h0=None`` a zero state. On the card nothing is cast or copied around
     the launch of the block's own tensors."""
+    if x.device.type == "meta":
+        return (x.new_empty(x.shape),
+                x.new_empty((x.shape[0], x.shape[2], A.shape[1]), dtype=torch.float32))
     if _device_kind(x) == "cpu":
         return ref.mamba_scan_ref(x, dt, A, Bmat, Cmat, Dskip, h0)
     return KernelFunction.apply(

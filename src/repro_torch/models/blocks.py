@@ -19,8 +19,8 @@ dtype after RoPE (int8 with ``k_scale``/``v_scale`` (B, T, G, 1) f32 when
 quantized), per SSM layer ``conv`` (B, K-1, d_inner) and ``h`` (B,
 d_inner, N) f32, per recurrent layer ``conv`` (B, K-1, Dr) and ``h`` (B,
 Dr) f32: the JAX leaves of one layer, time on dim 1. The ``constrain``
-sharding annotations and the expert-parallel MoE of the JAX package have
-no counterpart on one card.
+sharding annotations have no counterpart (no SPMD partitioner takes
+them); the expert-parallel MoE runs over a ``DeviceMesh`` (``_moe_ffn``).
 """
 from __future__ import annotations
 
@@ -30,10 +30,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import active_rules
+
 from .attention import attention, direct_attention
 from .config import ModelConfig
 from .mlp import mlp_apply, rmsnorm
-from .moe import moe_mlp
+from .moe import local_experts, moe_mlp, moe_mlp_ep
 from .rglru import rglru_decode_step, rglru_gates, rglru_scan
 from .rotary import apply_rope
 from .ssm import causal_conv1d, selective_scan, ssm_decode_step
@@ -155,11 +157,27 @@ def attn_block_decode(params, x: torch.Tensor, cache: Cache, cfg: ModelConfig, p
 
 def _moe_ffn(params, x: torch.Tensor, cfg: ModelConfig):
     """The MoE FFN over every token of ``x`` (B, S, D): ``(output, aux)``;
-    the capacity counts these B * S tokens."""
+    the capacity counts these B * S tokens. Under ``cfg.moe_ep`` with
+    active sharding rules whose mesh has a ``"model"`` axis, the
+    expert-parallel dispatch over that mesh (a ``DeviceMesh``; ``x`` is
+    this rank's batch shard; each rank takes its rows of the full expert
+    weights)."""
     B, S, D = x.shape
     flat = rmsnorm(x, params["ln2"], cfg.norm_eps).reshape(B * S, D)
-    out, aux = moe_mlp(flat, params["router"], params["ewg"], params.get("ewu"), params["ewd"],
-                       cfg.experts_per_token, cfg.expert_capacity_factor)
+    rules = active_rules()
+    if cfg.moe_ep and rules is not None and "model" in rules.sizes:
+        mesh = rules.mesh
+        if not hasattr(mesh, "get_group"):
+            raise ValueError("cfg.moe_ep exchanges tokens between the processes of a "
+                             "torch.distributed DeviceMesh; the active rules' mesh is a layout "
+                             "with no processes")
+        E = cfg.num_experts
+        ew = [local_experts(params.get(n), E, mesh) for n in ("ewg", "ewu", "ewd")]
+        out, aux = moe_mlp_ep(flat, params["router"], *ew, cfg.experts_per_token,
+                              cfg.expert_capacity_factor, mesh)
+    else:
+        out, aux = moe_mlp(flat, params["router"], params["ewg"], params.get("ewu"),
+                           params["ewd"], cfg.experts_per_token, cfg.expert_capacity_factor)
     return out.reshape(B, S, D), aux
 
 

@@ -7,7 +7,9 @@ are torch's, not jax's: the two packages agree in distribution, not in
 values (tests that compare the packages carry JAX-made weights across with
 ``repro_torch.convert``). Every tensor is drawn on the target device
 straight into its target dtype, a chunk of f32 normals at a time, so a
-9.4 B-parameter bf16 model never exists in f32.
+9.4 B-parameter bf16 model never exists in f32. On the ``meta`` device
+(shapes and dtypes only, nothing allocated) nothing is drawn and ``gen``
+may be None.
 
 :func:`unstack_params` turns that tree into the port's per-layer layout,
 the one :class:`repro_torch.models.model.LM` takes::
@@ -20,7 +22,7 @@ unit.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -37,10 +39,14 @@ def padded_vocab(cfg: ModelConfig, pad_to: int = 256) -> int:
     return ((cfg.vocab_size + pad_to - 1) // pad_to) * pad_to
 
 
-def _normal(shape, std: float, dtype, gen: torch.Generator) -> torch.Tensor:
-    """N(0, std^2) of ``shape`` in ``dtype`` on the generator's device,
-    drawn in f32 chunks and rounded into place."""
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
+def _normal(shape, std: float, dtype, gen: Optional[torch.Generator],
+            dev: torch.device) -> torch.Tensor:
+    """N(0, std^2) of ``shape`` in ``dtype`` on ``dev`` (the generator's
+    device), drawn in f32 chunks and rounded into place; on ``meta`` an
+    empty tensor of that shape."""
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    if dev.type == "meta":
+        return out
     flat = out.view(-1)
     for i in range(0, flat.numel(), _CHUNK):
         n = min(_CHUNK, flat.numel() - i)
@@ -49,16 +55,17 @@ def _normal(shape, std: float, dtype, gen: torch.Generator) -> torch.Tensor:
     return out
 
 
-def init_block_params(gen: torch.Generator, btype: str, cfg: ModelConfig, stack: int) -> Dict:
-    """Init one block type with a leading ``stack`` (repeats) dimension."""
+def init_block_params(gen: Optional[torch.Generator], btype: str, cfg: ModelConfig, stack: int,
+                      dev: torch.device) -> Dict:
+    """Init one block type with a leading ``stack`` (repeats) dimension on
+    ``dev`` (the generator's device; ``gen`` is None on ``meta``)."""
     D, F = cfg.d_model, cfg.d_ff
     H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = _dtype(cfg)
-    dev = gen.device
     p: Dict = {}
 
     def dense(shape, fan_in):
-        return _normal((stack, *shape), 1.0 / math.sqrt(fan_in), dt, gen)
+        return _normal((stack, *shape), 1.0 / math.sqrt(fan_in), dt, gen, dev)
 
     def zeros(shape, dtype=torch.float32):
         return torch.zeros((stack, *shape), dtype=dtype, device=dev)
@@ -113,7 +120,9 @@ def init_block_params(gen: torch.Generator, btype: str, cfg: ModelConfig, stack:
         p["wi"] = dense((Dr, Dr), Dr)
         p["bi"] = zeros((Dr,))
         # lambda init so decay a^c is in (0.9, 0.999) as in Griffin
-        u = torch.rand((stack, Dr), generator=gen, dtype=torch.float32, device=dev) * (0.999 - 0.9) + 0.9
+        u = (torch.empty((stack, Dr), dtype=torch.float32, device=dev) if dev.type == "meta" else
+             torch.rand((stack, Dr), generator=gen, dtype=torch.float32, device=dev))
+        u = u * (0.999 - 0.9) + 0.9
         p["lam"] = torch.log(torch.exp(-torch.log(u) / 8.0) - 1.0)  # softplus^-1
         p["w_out"] = dense((Dr, D), Dr)
         p["ln2"] = zeros((D,))
@@ -126,21 +135,23 @@ def init_block_params(gen: torch.Generator, btype: str, cfg: ModelConfig, stack:
     return p
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, device=None) -> Dict:
     """Full parameter tree in the JAX layout (embed + per-segment stacked
-    blocks + head), on ``gen.device``."""
+    blocks + head), on ``device`` (default ``gen.device``; ``gen`` may be
+    None on ``meta``)."""
     V = padded_vocab(cfg)
     D = cfg.d_model
     dt = _dtype(cfg)
+    dev = torch.device(device) if device is not None else gen.device
     params: Dict = {
-        "embed": {"tok": _normal((V, D), 0.02, dt, gen)},
-        "final_norm": torch.zeros((D,), dtype=torch.float32, device=gen.device),
+        "embed": {"tok": _normal((V, D), 0.02, dt, gen, dev)},
+        "final_norm": torch.zeros((D,), dtype=torch.float32, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["head"] = {"w": _normal((D, V), 1.0 / math.sqrt(D), dt, gen)}
+        params["head"] = {"w": _normal((D, V), 1.0 / math.sqrt(D), dt, gen, dev)}
     for si, (unit, repeats) in enumerate(cfg.segments()):
         params[f"seg{si}"] = {
-            f"u{j}": init_block_params(gen, btype, cfg, repeats)
+            f"u{j}": init_block_params(gen, btype, cfg, repeats, dev)
             for j, btype in enumerate(unit)
         }
     return params

@@ -109,7 +109,9 @@ class LM(nn.Module):
     ``params`` is the port's per-layer layout
     (:func:`repro_torch.models.init.unstack_params`); without it the model
     is initialised from a ``torch.Generator`` on ``device`` seeded with
-    ``seed``, straight into ``cfg.dtype``.
+    ``seed``, straight into ``cfg.dtype``. On ``device="meta"`` the model
+    has every shape and dtype and holds no memory: the launch tools'
+    specs and dry run (:mod:`repro_torch.launch.specs`) run it there.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda", params: Optional[Dict] = None,
@@ -118,9 +120,11 @@ class LM(nn.Module):
         self.cfg = cfg
         dev = torch.device(device)
         if params is None:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(seed)
-            params = unstack_params(init_params(gen, cfg), cfg)
+            gen = None                          # meta: shapes only, nothing to draw
+            if dev.type != "meta":
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(seed)
+            params = unstack_params(init_params(gen, cfg, dev), cfg)
         put = lambda t: _frozen(torch.as_tensor(t).to(dev))
         self.tok = put(params["embed"]["tok"])
         self.final_norm = put(params["final_norm"])

@@ -17,9 +17,15 @@ The router product runs in f32 as JAX's does: with TF32 on for f32
 matmuls (``torch.backends.cuda.matmul.allow_tf32``, off by default) the
 logits would round differently and a near tie could pick another expert.
 
-``_rank_within`` and ``moe_mlp_ep`` (expert parallelism by ``shard_map``
-with all-to-alls over a mesh) have no counterpart on one card, as
-``constrain`` has none: ``cfg.moe_ep`` is accepted and has no effect.
+Expert parallelism (``cfg.moe_ep``): :func:`moe_mlp_ep` is the JAX
+package's ``shard_map`` body run by every process of a
+``torch.distributed`` ``DeviceMesh`` (NCCL on the card, gloo on the
+CPU): each rank routes its batch shard, sends each (token, slot) to the
+rank that holds its expert by an all-to-all over the expert axis, runs
+its local experts and sends the rows back. ``models/blocks.py`` takes
+this branch under the JAX package's condition (``cfg.moe_ep``, active
+sharding rules, a ``"model"`` axis); a layout-only mesh has no processes
+to exchange with, and there ``cfg.moe_ep`` raises.
 """
 from __future__ import annotations
 
@@ -109,3 +115,130 @@ def moe_mlp(
     frac_probs = probs.mean(dim=0)
     aux = E * (frac_tokens * frac_probs).sum()
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel MoE over a torch.distributed DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def _rank_within(group: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """Arrival-order rank of each element within its group id (a running
+    count along the inner axis of a group-major one-hot)."""
+    group = group.long()
+    onehot = (torch.arange(n_groups, device=group.device)[:, None] == group[None, :])
+    pos = torch.cumsum(onehot.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    return pos.gather(0, group[None, :])[0]
+
+
+def _axis(mesh, name: str) -> Tuple[object, int, int]:
+    """(process group, size, this rank's coordinate) of a DeviceMesh axis."""
+    dim = mesh.mesh_dim_names.index(name)
+    return mesh.get_group(name), mesh.size(dim), mesh.get_local_rank(name)
+
+
+def local_experts(w: Optional[torch.Tensor], num_experts: int, mesh,
+                  expert_axis: str = "model") -> Optional[torch.Tensor]:
+    """This rank's experts of a full (E, ...) expert weight: rows ``[r *
+    E_local, (r + 1) * E_local)``, ``r`` the rank's coordinate on
+    ``expert_axis``."""
+    if w is None:
+        return None
+    if w.shape[0] != num_experts:
+        raise ValueError(f"an expert weight of {w.shape[0]} rows, want all {num_experts}")
+    _, n_shards, r = _axis(mesh, expert_axis)
+    e_local = num_experts // n_shards
+    return w[r * e_local:(r + 1) * e_local]
+
+
+def moe_mlp_ep(
+    x_local: torch.Tensor,             # (T_l, D) this rank's batch shard of the tokens
+    router_w: torch.Tensor,            # (D, E) replicated
+    wg_local: torch.Tensor,            # (E_local, D, F) this rank's experts
+    wu_local: Optional[torch.Tensor],  # (E_local, D, F), None for the GELU variant
+    wd_local: torch.Tensor,            # (E_local, F, D)
+    k: int,
+    capacity_factor: float,
+    mesh,
+    expert_axis: str = "model",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shard-local MoE dispatch with explicit all-to-alls over the expert
+    axis of ``mesh`` (a ``DeviceMesh`` with named dims; every rank calls
+    it): ``(output (T_l, D) in x's dtype, f32 aux)``.
+
+    The JAX package's ``shard_map`` body. Two-stage capacity: ``C_s``
+    pairs per destination shard at dispatch, ``C_e`` per local expert after
+    the exchange (the dense path's drops under balanced load). The token
+    rows go out and come back by
+    ``torch.distributed.nn.functional.all_to_all_single``, so gradients
+    flow through both; the expert ids go out with them. ``x_local`` is
+    this rank's shard of the batch over the mesh's other axes: the ranks
+    along ``expert_axis`` hold the same tokens, as in the JAX package. ``aux`` is averaged over every mesh axis, as JAX's
+    ``pmean`` over ``mesh.axis_names``.
+    """
+    import torch.distributed as dist
+    import torch.distributed.nn.functional as dist_fn
+
+    E = router_w.shape[1]
+    group, n_shards, _ = _axis(mesh, expert_axis)
+    if E % n_shards:
+        raise ValueError(f"{E} experts do not split over {n_shards} {expert_axis!r} shards")
+    E_local = E // n_shards
+    for w in (wg_local, wu_local, wd_local):
+        if w is not None and w.shape[0] != E_local:
+            raise ValueError(f"an expert weight holds {w.shape[0]} experts, a shard {E_local}")
+    T_l, D = x_local.shape
+    dev = x_local.device
+
+    logits = x_local.float() @ router_w.float()                     # (T_l, E) f32
+    expert_idx, combine_w = router_topk(logits, k)                  # (T_l, k)
+    flat_e = expert_idx.reshape(-1)
+    token_of = torch.arange(T_l, device=dev).repeat_interleave(k)
+    dest = flat_e // E_local                                         # target shard
+
+    # stage 1: per-destination-shard send buffers (a local scatter; dropped
+    # pairs land on a scratch row past the buffer)
+    C_s = capacity_for(T_l, n_shards, k, capacity_factor)
+    slot = _rank_within(dest, n_shards)
+    keep = slot < C_s
+    send_idx = torch.where(keep, dest * C_s + slot, n_shards * C_s)
+    send = x_local.new_zeros((n_shards * C_s + 1, D)).index_put(
+        (send_idx,), x_local[token_of])[: n_shards * C_s]
+    send_e = torch.full((n_shards * C_s + 1,), -1, dtype=torch.int32, device=dev).index_put(
+        (send_idx,), (flat_e % E_local).to(torch.int32))[: n_shards * C_s]
+
+    # exchange: tokens travel to their experts' shard
+    rows = dist_fn.all_to_all_single(torch.empty_like(send), send, group=group)
+    re = torch.empty_like(send_e)
+    dist.all_to_all_single(re, send_e, group=group)
+
+    # stage 2: local dispatch to per-expert buffers (a local scatter)
+    C_e = capacity_for(n_shards * C_s, E_local, 1, capacity_factor)
+    valid = re >= 0
+    slot2 = _rank_within(torch.where(valid, re, 0), E_local)
+    keep2 = valid & (slot2 < C_e)
+    buf_idx = torch.where(keep2, re.long() * C_e + slot2, E_local * C_e)
+    buf = rows.new_zeros((E_local * C_e + 1, D)).index_put((buf_idx,), rows)
+    buf = buf[: E_local * C_e].reshape(E_local, C_e, D)
+    if wu_local is not None:                                        # SwiGLU experts
+        hidden = F.silu(torch.bmm(buf, wg_local)) * torch.bmm(buf, wu_local)
+    else:                                                           # GELU (tanh) experts
+        hidden = F.gelu(torch.bmm(buf, wg_local), approximate="tanh")
+    eout = torch.bmm(hidden, wd_local).reshape(E_local * C_e, D)
+
+    # return trip: the same slots back to the source shard
+    back_rows = torch.where(keep2[:, None], eout[torch.where(keep2, buf_idx, 0)], 0.0)
+    back = dist_fn.all_to_all_single(torch.empty_like(back_rows), back_rows, group=group)
+
+    gathered = torch.where(keep[:, None], back[torch.where(keep, send_idx, 0)], 0.0)
+    w = combine_w.reshape(-1)[:, None].to(x_local.dtype)
+    y = (gathered * w).reshape(T_l, k, D).sum(dim=1)
+
+    # load-balance aux, averaged over every mesh axis (a replicated scalar)
+    probs = torch.softmax(logits, dim=-1)
+    frac_tok = F.one_hot(expert_idx[:, 0], E).float().mean(dim=0)
+    aux = E * (frac_tok * probs.mean(dim=0)).sum()
+    for name in mesh.mesh_dim_names:
+        g, n, _ = _axis(mesh, name)
+        aux = dist_fn.all_reduce(aux, group=g) / n
+    return y, aux
