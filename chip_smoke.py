@@ -273,7 +273,38 @@ Phases:
     dense forward's within 1e-4 (``flash_attention``'s launches in the
     two forwards go on its row as ``launch_phase_launches``); the first MoE layer's own input and
     weights through ``moe_mlp_ep`` equal ``moe_mlp`` within 1e-5 (output
-    and aux); (d) ``replica_mesh(4)`` is None on one card.
+    and aux); (d) ``replica_mesh(4)`` is None on one card;
+20. the sharded train step over a ``torch.distributed`` ``DeviceMesh``
+    (``init_train_state``/``make_train_step`` under ``AxisRules(mesh)``:
+    ``DTensor`` parameters and optimizer state laid out by
+    ``param_specs``, gathered at use) — (a) smollm-135m at published width
+    and depth in bf16 with remat, 3 steps of phase 16's 8 x 512 batches
+    from phase 16's weights on a world-size-1 NCCL mesh (data 1, model
+    1), then unsharded from the same weights: losses within rel 1e-5 and
+    the whole state within 5e-5 (whether bitwise is printed), the losses
+    also against phase 16's first three, step ms and peak GB beside
+    phase 16's, ``flash_attention`` launched layers x steps x 2, then one
+    more step of each side profiled (wall, device ms and idle share; host
+    ms in the gathers at use, forward and backward, and in the AdamW
+    update); (c), on (a)'s sharded state: a sharded checkpoint save (host
+    0 writes ``shard_0.npz``) and restore into the sharded template,
+    bitwise, the placements kept, timed; (b) smollm-135m,
+    recurrentgemma-9b, falcon-mamba-7b and granite-moe-1b-a400m SMOKE in
+    f32 (the four block types), 2 steps each, sharded vs unsharded on the
+    card within the same bounds, all three model kernels launched in the
+    sharded steps; (d) only with two or more cards: (b)'s configs on a
+    2-rank NCCL world (data 2, model 1), a spawned process per card,
+    against (b)'s one-card results; with four or more, on a 2x2 world
+    (data 2, model 2) too, with smollm-135m at published width in bf16
+    and in f32 on the launcher's first 11 batches against one card, every
+    loss (f32 within rel 1e-5, bf16 within ``LAUNCHER_REL``); (e) only with
+    four or more cards: the training launcher at smollm-135m's published
+    width on one card, under ``torchrun`` on four as 2x2, then from the
+    2x2 run's checkpoint resumed on two as 1x2 and on one card, every
+    printed loss held to the one-card runs' (step 0 equal, the others
+    within ``LAUNCHER_REL``)
+    (else each line says it was not run). A ``[sharded]`` line prints the
+    numbers beside the card's name and power limit.
 
 Two lines before the last is a JSON object listing every kernel with its
 launches, error, bound and times — ``ms``/``plain_ms``/``library_ms`` are
@@ -298,7 +329,8 @@ moonshot's and qwen's forwards, the SMOKE training), and
 ``belief_aggregate``'s ``families_pool_launches`` phase 17 (c)'s, the
 three model kernels' ``decode_phase_launches`` phase 18's (by its
 prefills, by (a)'s prefills, and in the whole phase, the forwards the
-prefills and decodes are held against included); the
+prefills and decodes are held against included) and ``sharded_launches``
+phase 20's sharded steps' ((a) smollm-135m bf16, (b) SMOKE f32); the
 two ``mc_correctness`` rows carry ``lifted``, their phase-3 cases past
 the limits of earlier versions, timed.
 ``flash_attention`` is listed at the
@@ -2186,6 +2218,7 @@ FULL_TRAIN = (8, 512, 30)         # (c): smollm-135m's batch, sequence, steps
 TRAIN_CLI = ["--arch", "smollm-135m", "--save-every", "10"]
 PIPELINE_STEPS = 60               # (e): train_and_serve --steps
 BACKWARD_RANGE = "flash_attention_ref backward"   # ops.KernelFunction's profiler range
+HOST_RANGES = ("unshard", "adamw_update", "constrain_params")   # phase 20 (a)'s labels
 
 
 def input_grads(fn, inputs, upstream):
@@ -2406,14 +2439,15 @@ def range_kernels(evt) -> list:
     return found
 
 
-def profiled_step(run) -> dict:
+def profiled_step(run, host_split=None) -> dict:
     """Two calls of ``run`` under ``torch.profiler``, each between spin
     kernels after a pause. The first traces the card only: its wall ms,
     device busy ms and idle share. The second traces the host too, for the
     split of device ms into the flash kernel's forward, the attention
     backward (every kernel under ``ops.KernelFunction``'s backward range),
     cuBLAS outside that range and the rest, with the largest kernels of the
-    rest."""
+    rest; ``host_split(prof)``, where given, adds its keys from that
+    trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2431,10 +2465,10 @@ def profiled_step(run) -> dict:
             for _ in range(SENTINELS):
                 torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
-        # kernel rows: no spin kernels, and not the backward range's own row
-        # on the device timeline (an annotation spanning kernels, not one)
+        # kernel rows: no spin kernels, and not a range's own row on the
+        # device timeline (an annotation spanning kernels, not one)
         rows = [e for e in device_events(prof)
-                if "spin_kernel" not in e.key and e.key != BACKWARD_RANGE]
+                if "spin_kernel" not in e.key and e.key not in (BACKWARD_RANGE, *HOST_RANGES)]
         return prof, wall_ms, rows
 
     _, wall_ms, rows = trace([ProfilerActivity.CUDA])
@@ -2452,8 +2486,9 @@ def profiled_step(run) -> dict:
     traced_busy = sum(ms for ms, _ in kernels.values())
     rest = sorted(((ms, n, k) for k, (ms, n) in kernels.items()
                    if not gemm(k) and "flash_attention_kernel" not in k), reverse=True)
+    host = host_split(prof) if host_split else {}
     return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
-            "split_trace": {"wall_ms": host_wall_ms, "device_ms": traced_busy,
+            "split_trace": {"wall_ms": host_wall_ms, "device_ms": traced_busy, **host,
                             "flash_forward_ms": flash_fwd, "attention_backward_ms": attn_bwd,
                             "cublas_ms": cublas,
                             "other_ms": traced_busy - flash_fwd - attn_bwd - cublas,
@@ -3558,6 +3593,518 @@ def launch_phase(dev, full: dict, width: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the sharded train step over torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARDED_STEPS = 3                          # (a): of phase 16's 8 x 512 batches
+SHARDED_ARCHS = ("smollm-135m", "recurrentgemma-9b", "falcon-mamba-7b", "granite-moe-1b-a400m")
+SHARDED_SMOKE_STEPS = 2                    # (b), (d)
+SHARDED_REL = 1e-5                         # losses (tests/test_distributed.py's bounds)
+SHARDED_ATOL = 5e-5                        # parameters and optimizer state
+LAUNCHER = ["--arch", "smollm-135m", "--save-every", "10"]   # (e), at published width
+LAUNCHER_BATCH = (8, 64)                   # the launcher's default --batch and --seq
+FULL_WORLD_STEPS = 11                      # (d) 2x2 at full width: the launcher's steps 0-10
+LAUNCHER_REL = 1e-2     # bf16 losses, mesh vs one card: 3x the 3.3e-3 (d) 2x2 measured
+
+
+def state_diff(a: dict, b: dict) -> float:
+    """Largest |a - b| over the tensor leaves of two nested dict states (f32)."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"states with other keys: {sorted(a)} vs {sorted(b)}")
+        return max((state_diff(a[k], b[k]) for k in a), default=0.0)
+    return float((a.detach().float() - b.detach().float().to(a.device)).abs().max())
+
+
+def to_cpu(tree):
+    """A nested dict of tensors copied to the host."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def train_pair(dev, mesh, build, batches, opt_cfg, on_sharded=None) -> dict:
+    """The same model (``build()``) trained on ``batches`` twice: sharded
+    under ``AxisRules(mesh)`` (the model distributed by
+    ``init_train_state``), then unsharded. Per side its losses, step ms,
+    peak GB and whole final state; the sharded side's model-kernel
+    launches, counted from 0 around its steps alone. ``on_sharded(state)``
+    runs on the sharded state before it is gathered."""
+    from repro_torch.distributed import AxisRules, use_rules
+    from repro_torch.distributed.sharding import gather, is_distributed
+    from repro_torch.kernels import ops
+    from repro_torch.training import init_train_state, make_train_step
+
+    out = {}
+    for side in ("sharded", "unsharded"):
+        model = build()
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        rules = use_rules(AxisRules(mesh)) if side == "sharded" else contextlib.nullcontext()
+        with rules:
+            params, opt = init_train_state(model)
+            step = make_train_step(model, opt_cfg)
+            ops.reset_launch_counts()
+            losses, step_ms = [], []
+            for batch in batches:
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                losses.append(float(m["loss"]))              # reads back: the step is done
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: getattr(ops, k).launches for k in MODEL_KERNELS}
+            extra = on_sharded({"params": params, "opt": opt}) if (
+                side == "sharded" and on_sharded) else None
+            whole = gather({"params": {k: p.detach() for k, p in params.items()}, "opt": opt})
+        out[side] = {"losses": losses, "step_ms": step_ms, "state": whole,
+                     "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None,
+                     "params": len(params),
+                     "distributed": sum(is_distributed(p) for p in params.values())}
+        if side == "sharded":
+            out[side].update(launches=launches, extra=extra)
+        del model, params, opt, step
+        if cuda:
+            torch.cuda.empty_cache()
+    sh, un = out["sharded"], out["unsharded"]
+    out["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(sh["losses"], un["losses"]))
+    out["state_max_abs"] = state_diff(sh["state"], un["state"])
+    out["bitwise"] = sh["losses"] == un["losses"] and out["state_max_abs"] == 0.0
+    return out
+
+
+def sharded_checkpoint(state: dict) -> dict:
+    """(c) A sharded ``CheckpointManager.save`` (every leaf gathered, host 0
+    writes) and ``restore_latest`` into the same sharded template, timed;
+    the restored leaves equal the saved ones bitwise and keep their
+    placements."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import gather
+
+    ckpt = ROOT / "build" / "train_ckpt" / "chip_smoke_sharded"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt))
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    mgr.save(SHARDED_STEPS, state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, restored = mgr.restore_latest(state)
+    sync()
+    restore_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    files = sorted(p.name for p in ckpt.glob("step_*/*"))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    same_layout = all(restored["params"][k].placements == p.placements
+                      for k, p in state["params"].items())
+    diff = state_diff(gather(restored), gather(state))
+    out = {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s, "files": files,
+           "restored_step": step, "max_abs": diff, "placements_kept": same_layout}
+    log(f"  (c) sharded checkpoint round trip: {json.dumps(out)}")
+    if step != SHARDED_STEPS or diff != 0.0 or not same_layout or files != ["meta.json",
+                                                                            "shard_0.npz"]:
+        raise AssertionError(f"the sharded checkpoint did not round-trip: {out}")
+    return out
+
+
+def gather_host_ms(prof) -> dict:
+    """(a) Host ms of a traced train step by what it ran: the gathers at use
+    (each ``unshard`` range, forward and remat recompute, and the backward
+    nodes of its ``redistribute`` and ``to_local``), the ``adamw_update``
+    and ``constrain_params`` ranges, each the union of its events' spans
+    over every thread."""
+    from torch.autograd import DeviceType
+
+    def union_ms(match) -> float:
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CPU and match(e.name))
+        total, end = 0.0, float("-inf")
+        for a, b in spans:
+            total += max(0.0, b - max(a, end))
+            end = max(end, b)
+        return total / 1e3
+
+    fwd = lambda name: name == "unshard"
+    bwd = lambda name: name.endswith(("RedistributeBackward", "_ToTorchTensorBackward"))
+    return {"host_gather_forward_ms": union_ms(fwd), "host_gather_backward_ms": union_ms(bwd),
+            "host_gathers_ms": union_ms(lambda name: fwd(name) or bwd(name)),
+            "host_adamw_ms": union_ms(lambda name: name == "adamw_update"),
+            "host_constrain_ms": union_ms(lambda name: name == "constrain_params"),
+            "unshard_ranges": sum(e.name == "unshard" for e in prof.events())}
+
+
+@contextlib.contextmanager
+def labelled_ranges():
+    """``unshard`` (as the model calls it), ``adamw_update`` and
+    ``constrain_params`` (as the train step calls them) each under a
+    profiler range of its own name."""
+    from unittest import mock
+
+    from torch.profiler import record_function
+
+    import repro_torch.models.model as model_mod
+    import repro_torch.training.train_loop as loop_mod
+
+    def labelled(name, fn):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
+
+    with mock.patch.object(model_mod, "unshard", labelled("unshard", model_mod.unshard)), \
+            mock.patch.object(loop_mod, "adamw_update",
+                              labelled("adamw_update", loop_mod.adamw_update)), \
+            mock.patch.object(loop_mod, "constrain_params",
+                              labelled("constrain_params", loop_mod.constrain_params)):
+        yield
+
+
+def sharded_profile(dev, mesh, build, batches, opt_cfg) -> dict:
+    """(a) One step of each side, sharded and unsharded, each on a model of
+    its own after two untraced steps, through :func:`profiled_step`: wall
+    ms, device ms and idle share from a trace of the card alone; from a
+    trace of the host too, the device split and the host ms of the gathers
+    at use, the AdamW update and the layout pins (:func:`gather_host_ms`)."""
+    from repro_torch.distributed import AxisRules, use_rules
+    from repro_torch.training import init_train_state, make_train_step
+
+    out = {}
+    for side in ("sharded", "unsharded"):
+        model = build()
+        rules = use_rules(AxisRules(mesh)) if side == "sharded" else contextlib.nullcontext()
+        with rules, labelled_ranges():
+            params, opt = init_train_state(model)
+            step = make_train_step(model, opt_cfg)
+            state = [params, opt]
+
+            def run(batch):
+                state[0], state[1], _ = step(state[0], state[1], batch)
+
+            for batch in batches[:2]:
+                run(batch)
+            out[side] = profiled_step(lambda: run(batches[2]), host_split=gather_host_ms)
+        del model, params, opt, step, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def case_config(case: dict):
+    """The model config of a (d) case: the arch's SMOKE or published
+    config, in ``case["dtype"]`` where one is named."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_smoke_config if case["smoke"] else get_config)(case["arch"])
+    return dataclasses.replace(cfg, dtype=case["dtype"]) if case["dtype"] else cfg
+
+
+def train_case(dev, case: dict) -> dict:
+    """A (d) case trained on its batches on ``dev`` under whatever sharding
+    rules are active (every rank of a mesh calls it): its losses and, where
+    ``case["state"]``, its whole final state on the host."""
+    from repro_torch.distributed.sharding import gather
+    from repro_torch.models import LM
+    from repro_torch.training import OptimizerConfig, init_train_state, make_train_step
+
+    model = LM(case_config(case), device=dev if case["init_on_card"] else "cpu",
+               seed=case["seed"]).to(dev)
+    params, opt = init_train_state(model)
+    step = make_train_step(model, OptimizerConfig(**case["opt"]))
+    losses = []
+    for b in case["batches"]:
+        params, opt, m = step(params, opt, {k: v.to(dev) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    state = (to_cpu(gather({"params": {k: p.detach() for k, p in params.items()}, "opt": opt}))
+             if case["state"] else None)
+    return {"losses": losses, "state": state}
+
+
+def sharded_world_rank(rank: int, shape: tuple, port: int, path: str, device_type: str,
+                       cases: dict) -> None:
+    """(d) One rank of a world of ``data x model = shape`` ranks (NCCL on
+    cards, gloo on the CPU) on a ``("data", "model")`` mesh: every case of
+    ``cases`` trained sharded (:func:`train_case`); rank 0 saves the
+    results to ``path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.distributed import AxisRules, use_rules
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = device_type == "cuda"
+    dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=shape[0] * shape[1], rank=rank,
+                            **({"device_id": dev} if cuda else {}))
+    try:
+        mesh = make_mesh(shape, ("data", "model"), device_type)
+        out = {}
+        for name, case in cases.items():
+            with use_rules(AxisRules(mesh)):
+                out[name] = train_case(dev, case)
+        if rank == 0:
+            torch.save(out, path)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_world(device_type: str, shape: tuple, cases: dict, want: dict) -> dict:
+    """(d) :func:`sharded_world_rank` on ``data x model`` spawned ranks,
+    each on its own card; each case's losses (step by step) and, where it
+    keeps one, whole state against ``want``'s, within the case's
+    ``loss_rel`` bound and :data:`SHARDED_ATOL`."""
+    import multiprocessing
+
+    world = shape[0] * shape[1]
+    path = ROOT / "build" / "train_ckpt" / "chip_smoke_sharded_world.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=sharded_world_rank,
+                         args=(r, shape, port, str(path), device_type, cases))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"the {shape[0]}x{shape[1]} world's ranks exited with {codes}")
+    got = torch.load(path)
+    path.unlink()
+    out = {"mesh": f"{shape[0]}x{shape[1]}", "seconds": time.perf_counter() - t0}
+    for name, case in cases.items():
+        rels = [abs(a - b) / abs(b) for a, b in zip(got[name]["losses"], want[name]["losses"])]
+        out[name] = {"losses": got[name]["losses"], "loss_rel_by_step": rels,
+                     "loss_rel": max(rels)}
+        if case["state"]:
+            out[name]["state_max_abs"] = state_diff(got[name]["state"], want[name]["state"])
+        if max(rels) > case["loss_rel"] or out[name].get("state_max_abs", 0.0) > SHARDED_ATOL:
+            raise AssertionError(f"{name} on {out['mesh']} differs from one card: {out[name]}")
+    return out
+
+
+def launcher_batches(cfg, steps: int) -> list:
+    """The training launcher's first ``steps`` batches (no frontend): its
+    draws, in its order."""
+    rng = np.random.default_rng(0)
+    return [{"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (LAUNCHER_BATCH[0],
+                                                                         LAUNCHER_BATCH[1])
+                                                     ).astype(np.int32))}
+            for _ in range(steps)]
+
+
+def launch_timed(module: str, args: list) -> dict:
+    """A launcher run (``run_cli``): its wall and step-loop seconds, its
+    printed losses by step and its lines."""
+    t0 = time.perf_counter()
+    lines = run_cli(module, args).strip().splitlines()
+    return {"wall_s": time.perf_counter() - t0,
+            "loop_s": float(lines[-1].split()[2].rstrip("s")),
+            "losses": {int(w[1]): float(w[3]) for w in map(str.split, lines)
+                       if w and w[0] == "step"},
+            "lines": lines}
+
+
+def launcher_world() -> dict:
+    """(e) The training launcher at smollm-135m's published width in bf16:
+    20 steps on one card unsharded; 20 steps under ``torchrun`` on four
+    cards as a 2x2 mesh (NCCL, checkpoints every 10); then from that run's
+    step-10 checkpoint, resumed to 30 on two cards as 1x2 and, from a copy
+    of it, on one card unsharded. Every run exits 0 and both resumed runs
+    start from step 10. Every loss the mesh runs print is held to the one-card
+    run's at the same step from the same start: step 0 (the same weights and
+    batch, before any update) equal as printed, the later steps within
+    :data:`LAUNCHER_REL` (bf16: the gradient sums over ranks round otherwise
+    than one card's; (d)'s full-width runs show the f32 gap)."""
+    ckpt = ROOT / "build" / "train_ckpt" / "chip_smoke_launcher"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    one = lambda steps, where: LAUNCHER + ["--steps", str(steps), "--ckpt", str(ckpt / where)]
+    torchrun = lambda n, mesh, steps: ["--standalone", "--nproc-per-node", str(n), "-m",
+                                       "repro_torch.launch.train", *LAUNCHER, "--steps",
+                                       str(steps), "--ckpt", str(ckpt / "mesh"), "--mesh", mesh]
+    out = {"one_card": launch_timed("repro_torch.launch.train", one(20, "one")),
+           "mesh_2x2": launch_timed("torch.distributed.run", torchrun(4, "2x2", 20))}
+    shutil.copytree(ckpt / "mesh", ckpt / "from_mesh")
+    out["mesh_1x2_resumed"] = launch_timed("torch.distributed.run", torchrun(2, "1x2", 30))
+    out["one_card_resumed"] = launch_timed("repro_torch.launch.train", one(30, "from_mesh"))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for run in ("one_card_resumed", "mesh_1x2_resumed"):
+        if "resumed from step 10" not in out[run]["lines"]:
+            raise AssertionError(f"the {run} run did not resume: {out[run]['lines']}")
+    want = {**out["one_card"]["losses"], **out["one_card_resumed"]["losses"]}
+    got = {**out["mesh_2x2"]["losses"], **out["mesh_1x2_resumed"]["losses"]}
+    if got.keys() != want.keys() or got[0] != want[0]:
+        raise AssertionError(f"printed losses differ: mesh {got}, one card {want}")
+    rels = {s: abs(got[s] - want[s]) / abs(want[s]) for s in sorted(want)}
+    if max(rels.values()) > LAUNCHER_REL:
+        raise AssertionError(f"mesh losses {got} vs one card's {want}: rel {rels}")
+    res = {k: {m: v[m] for m in ("wall_s", "loop_s", "losses")} for k, v in out.items()}
+    return {**res, "loss_rel_by_step": rels}
+
+
+def sharded_summary(sh: dict) -> dict:
+    """The ``[sharded]`` line: (a)'s comparison, step times, peak memory and
+    profile beside phase 16's, the checkpoint round trip, (b)'s, (d)'s and
+    (e)'s comparisons."""
+    full = sh["full"]
+    keys = ("steps", "batch", "seq", "bitwise", "equal_phase16_losses", "loss_rel",
+            "state_max_abs", "sharded_losses", "phase16_losses", "step_ms", "unsharded_step_ms",
+            "phase16_step_ms_median", "peak_memory_gb", "unsharded_peak_memory_gb",
+            "phase16_peak_memory_gb", "launches", "checkpoint", "phase16_checkpoint",
+            "profile")
+    worlds = {}
+    for key in ("world2", "world4"):
+        w = sh[key]
+        worlds[key] = ({k: ({m: x for m, x in v.items() if m != "losses"}
+                            if isinstance(v, dict) else v) for k, v in w.items()}
+                       if isinstance(w, dict) else w)
+    return {"full": {k: full[k] for k in keys},
+            "smoke": {a: {k: r[k] for k in ("loss_rel", "state_max_abs", "bitwise")}
+                      for a, r in sh["smoke"].items()},
+            "smoke_launches": sh["smoke_launches"], **worlds,
+            "launcher": sh["launcher"], "seconds": {k: sh[k] for k in ("full_s", "smoke_s")}}
+
+
+def sharded_phase(dev, full: dict) -> dict:
+    """Phase 20: (a)-(e) above."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import make_token_task
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import LM
+    from repro_torch.training import OptimizerConfig
+
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        t = time.perf_counter()
+        B, S, steps = FULL_TRAIN
+        cfg = get_config("smollm-135m")
+        data = make_token_task(4, S, 512, n=B * steps, seed=0)["tokens"]
+        batches = [{"tokens": torch.from_numpy(data[i * B:(i + 1) * B]).to(dev)}
+                   for i in range(SHARDED_STEPS)]
+        opt_cfg = OptimizerConfig(lr=3e-3, warmup_steps=5, total_steps=steps)
+        log(f"  (a) smollm-135m full width bf16 remat={cfg.remat}, {SHARDED_STEPS} steps of "
+            f"{B}x{S} on a world-size-1 NCCL DeviceMesh (data 1, model 1) vs unsharded")
+        a = train_pair(dev, mesh, lambda: LM(cfg, device=dev, seed=5), batches, opt_cfg,
+                       on_sharded=sharded_checkpoint)
+        sh = a["sharded"]
+        want_flash = cfg.num_layers * SHARDED_STEPS * (2 if cfg.remat else 1)
+        p16 = full["losses"][:SHARDED_STEPS]
+        out["full"] = {
+            "arch": "smollm-135m", "batch": B, "seq": S, "steps": SHARDED_STEPS,
+            "sharded_losses": sh["losses"], "unsharded_losses": a["unsharded"]["losses"],
+            "phase16_losses": p16, "equal_phase16_losses": sh["losses"] == p16,
+            "loss_rel": a["loss_rel"], "state_max_abs": a["state_max_abs"],
+            "bitwise": a["bitwise"], "distributed_params": sh["distributed"],
+            "step_ms": sh["step_ms"], "unsharded_step_ms": a["unsharded"]["step_ms"],
+            "phase16_step_ms_median": full["step_ms_median"],
+            "peak_memory_gb": sh["peak_memory_gb"],
+            "unsharded_peak_memory_gb": a["unsharded"]["peak_memory_gb"],
+            "phase16_peak_memory_gb": full["peak_memory_gb"],
+            "launches": sh["launches"], "checkpoint": sh["extra"],
+            "phase16_checkpoint": full["checkpoint"]}
+        log(f"  (a) {json.dumps({k: v for k, v in out['full'].items() if k != 'checkpoint'})}")
+        if sh["distributed"] != sh["params"] or a["unsharded"]["distributed"]:
+            raise AssertionError("the sharded run's parameters were not all DTensors")
+        if a["loss_rel"] > SHARDED_REL or a["state_max_abs"] > SHARDED_ATOL:
+            raise AssertionError(f"the sharded smollm-135m step differs from the unsharded: "
+                                 f"loss rel {a['loss_rel']}, state {a['state_max_abs']}")
+        if max(abs(x - y) / abs(y) for x, y in zip(sh["losses"], p16)) > SHARDED_REL:
+            raise AssertionError(f"sharded losses {sh['losses']} vs phase 16's {p16}")
+        if sh["launches"]["flash_attention"] != want_flash:
+            raise AssertionError(f"flash_attention launched {sh['launches']['flash_attention']} "
+                                 f"times in the sharded steps, want {want_flash}")
+        del a, sh
+        prof = sharded_profile(dev, mesh, lambda: LM(cfg, device=dev, seed=5), batches, opt_cfg)
+        out["full"]["profile"] = prof
+        log(f"  (a) one step profiled, sharded and unsharded: {json.dumps(prof)}")
+        if prof["sharded"]["split_trace"]["unshard_ranges"] <= 0:
+            raise AssertionError("the profiled sharded step gathered no parameter")
+        out["full_s"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        Bs, Ss, _ = SMOKE_TRAIN
+        log(f"  (b) {', '.join(SHARDED_ARCHS)} SMOKE f32, {SHARDED_SMOKE_STEPS} steps of "
+            f"{Bs}x{Ss}: sharded (world 1) vs unsharded on the card")
+        smoke, launches, cases = {}, dict.fromkeys(MODEL_KERNELS, 0), {}
+        for i, arch in enumerate(SHARDED_ARCHS):
+            scfg, seed = get_smoke_config(arch), 120 + i
+            bs = smoke_batches(scfg, Bs, Ss, SHARDED_SMOKE_STEPS, np.random.default_rng(seed))
+            cases[arch] = {"arch": arch, "smoke": True, "dtype": None, "seed": seed,
+                           "init_on_card": False, "batches": bs, "state": True,
+                           "opt": {"lr": 1e-3, "warmup_steps": 1}, "loss_rel": SHARDED_REL}
+            r = train_pair(dev, mesh, lambda: LM(scfg, device="cpu", seed=seed).to(dev),
+                           [{k: v.to(dev) for k, v in b.items()} for b in bs],
+                           OptimizerConfig(**cases[arch]["opt"]))
+            for k in MODEL_KERNELS:
+                launches[k] += r["sharded"]["launches"][k]
+            smoke[arch] = {"loss_rel": r["loss_rel"], "state_max_abs": r["state_max_abs"],
+                           "bitwise": r["bitwise"], "losses": r["sharded"]["losses"],
+                           "unsharded": {"losses": r["unsharded"]["losses"],
+                                         "state": to_cpu(r["unsharded"]["state"])}}
+            log(f"  {arch}: sharded losses {r['sharded']['losses']}, loss rel {r['loss_rel']:.3g},"
+                f" state max abs {r['state_max_abs']:.3g}, bitwise {r['bitwise']}")
+            if r["loss_rel"] > SHARDED_REL or r["state_max_abs"] > SHARDED_ATOL:
+                raise AssertionError(f"{arch}: the sharded SMOKE step differs from the unsharded")
+        log(f"  model kernel launches in (b)'s sharded steps: {launches}")
+        if min(launches[k] for k in needed_kernels(SHARDED_ARCHS)) <= 0:
+            raise AssertionError(f"a model kernel did not launch in the sharded steps: {launches}")
+        out["smoke"] = {a: {k: v for k, v in r.items() if k != "unsharded"}
+                        for a, r in smoke.items()}
+        out["smoke_launches"] = launches
+        out["smoke_s"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+
+    n = torch.cuda.device_count()
+    want = {a: r["unsharded"] for a, r in smoke.items()}
+    if n >= 2:
+        log("  (d) a 2-rank NCCL world (data 2, model 1) on cards 0-1 vs one card's (b)")
+        out["world2"] = sharded_world("cuda", (2, 1), cases, want)
+        log(f"  (d) {json.dumps(out['world2'])}")
+    else:
+        out["world2"] = f"not run: {n} card"
+        log(f"  (d) not run: the 2-rank NCCL world needs two cards, this machine has {n}")
+    if n >= 4:
+        lb = launcher_batches(cfg, FULL_WORLD_STEPS)
+        for dtype, bound in (("bfloat16", LAUNCHER_REL), ("float32", SHARDED_REL)):
+            name = f"smollm-135m {dtype}"
+            cases[name] = {"arch": "smollm-135m", "smoke": False, "dtype": dtype, "seed": 0,
+                           "init_on_card": True, "batches": lb, "state": False,
+                           "opt": {"lr": 3e-3, "warmup_steps": 10, "total_steps": 20},
+                           "loss_rel": bound}
+            want[name] = train_case(dev, cases[name])
+            torch.cuda.empty_cache()
+        log(f"  (d) a 2x2 NCCL world (data 2, model 2) on cards 0-3 vs one card: (b)'s "
+            f"configs, and smollm-135m at published width in bf16 and f32 on the launcher's "
+            f"first {FULL_WORLD_STEPS} batches")
+        out["world4"] = sharded_world("cuda", (2, 2), cases, want)
+        log(f"  (d) {json.dumps(out['world4'])}")
+        log("  (e) the training launcher at full width: one card, then torchrun on 2x2, "
+            "resumed on 1x2")
+        out["launcher"] = launcher_world()
+        log(f"  (e) {json.dumps(out['launcher'])}")
+    else:
+        out["world4"] = out["launcher"] = f"not run: {n} card(s)"
+        log(f"  (d) 2x2 and (e) not run: the 2x2 mesh needs four cards, this machine has {n}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -3817,6 +4364,17 @@ def main() -> int:
         if row["name"] == "flash_attention":
             row["launch_phase_launches"] = launch["ep"]["flash_launches"]
     log(f"[roofline] {json.dumps({'card': smi, **launch['roofline']})}")
+    t0 = time.perf_counter()
+    log("[20 the sharded train step over a torch.distributed DeviceMesh: smollm-135m full width "
+        "world 1 vs unsharded, a sharded checkpoint, SMOKE block types, a 2-rank world]")
+    sharded = sharded_phase(dev, full)
+    phases["sharded_s"] = time.perf_counter() - t0
+    log(f"[sharded] {json.dumps({'card': smi, **sharded_summary(sharded)})}")
+    for row in kernels:
+        if row["name"] in MODEL_KERNELS:
+            row["sharded_launches"] = {
+                "smollm_135m_bf16": sharded["full"]["launches"][row["name"]],
+                "smoke_f32": sharded["smoke_launches"][row["name"]]}
     log(f"[earlier kernels] {json.dumps(earlier_kernels(kernels))}")
     floor = launch_floor_ms(dev)
     for row in kernels:

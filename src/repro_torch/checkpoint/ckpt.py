@@ -11,6 +11,17 @@ their path joined with ``/``. numpy has no bfloat16 without
 ``ml_dtypes``, so a bf16 tensor is stored as its bits (``uint16``) and
 restored bit for bit against the template's dtype. A restored tensor lands
 on its template's device.
+
+Sharded states (``DTensor`` leaves, ``repro_torch.distributed``): a save
+gathers every such leaf whole, a collective that every rank of the mesh
+calls (were only the writer to gather, it would wait for the others
+forever). Leaves are gathered one at a time and copied to the host, so a
+card holds one leaf whole at a time; host 0 alone keeps them and writes
+the whole state as ``shard_0.npz``, and the other ranks wait at a barrier
+until it is in place. A restore reads
+that file on every rank and lays each leaf out with its *template's*
+placements, on the template's mesh, which may be another mesh than the
+one that saved it (the elastic re-mesh restart).
 """
 from __future__ import annotations
 
@@ -21,6 +32,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import gather, is_distributed
 
 
 def _leaves(tree: Any, prefix: str = ""):
@@ -42,7 +55,14 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def _from_numpy(arr: np.ndarray, leaf, key: str):
-    """``arr`` as ``leaf`` is: its type, dtype, shape and device."""
+    """``arr`` as ``leaf`` is: its type, dtype, shape and device, and a
+    ``DTensor`` leaf's mesh and placements (this rank keeps its block)."""
+    if is_distributed(leaf):
+        from torch.distributed.tensor import distribute_tensor
+
+        whole = _from_numpy(arr, torch.empty(leaf.shape, dtype=leaf.dtype, device="cpu"), key)
+        return distribute_tensor(whole.to(leaf.device), leaf.device_mesh, leaf.placements,
+                                 src_data_rank=None)
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(arr, dtype=np.asarray(leaf).dtype).reshape(np.shape(leaf))
     if leaf.dtype == torch.bfloat16:
@@ -80,10 +100,22 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, step: int, state: Any, extra_meta: Optional[Dict] = None):
+        sharded = any(is_distributed(leaf) for _, leaf in _leaves(state))
+        if sharded:                     # every rank gathers; host 0 writes the whole
+            flat = {}
+            for key, leaf in _leaves(state):
+                arr = _to_numpy(gather(leaf))
+                if self.host_id == 0:
+                    flat[key] = arr
+            if self.host_id != 0:
+                _barrier()
+                return
+        else:
+            flat = _flatten(state)
         final = os.path.join(self.dir, f"step_{step:09d}")
         tmp = final + ".tmp"
         os.makedirs(tmp, exist_ok=True)
-        np.savez(os.path.join(tmp, f"shard_{self.host_id}.npz"), **_flatten(state))
+        np.savez(os.path.join(tmp, f"shard_{self.host_id}.npz"), **flat)
         if self.host_id == 0:
             meta = {"step": step, "num_hosts": self.num_hosts}
             meta.update(extra_meta or {})
@@ -94,6 +126,8 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.replace(tmp, final)
         self._gc()
+        if sharded:
+            _barrier()
 
     def _gc(self):
         steps = self.list_steps()
@@ -110,7 +144,11 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def restore(self, step: int, template: Any) -> Any:
-        path = os.path.join(self.dir, f"step_{step:09d}", f"shard_{self.host_id}.npz")
+        """The state saved at ``step``, laid out as ``template`` is; a
+        sharded template restores host 0's whole state on every rank."""
+        sharded = any(is_distributed(leaf) for _, leaf in _leaves(template))
+        host = 0 if sharded else self.host_id
+        path = os.path.join(self.dir, f"step_{step:09d}", f"shard_{host}.npz")
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
         return _unflatten_into(template, flat)
@@ -124,3 +162,9 @@ class CheckpointManager:
             except Exception:
                 continue  # incomplete/corrupt: fall back to the previous one
         return None, template
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    dist.barrier()

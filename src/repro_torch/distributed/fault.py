@@ -53,8 +53,9 @@ def plan_elastic_remesh(
     parameter shards with per-layer collectives), so the recovery unit is a
     whole data row: drop as many rows as have a failure, keep batch
     divisibility by recomputing per-row batch. Returns the new mesh shape;
-    the restart path is checkpoint-restore under the new mesh (parameters
-    are re-sharded by pjit's in_shardings on load).
+    the restart path is checkpoint-restore under the new mesh: the
+    parameters and optimizer state are laid out on load as the template
+    state (``init_train_state`` under the new mesh's rules) is.
     """
     if not failed_hosts:
         return dict(mesh_shape)
@@ -132,6 +133,9 @@ class FaultTolerantDriver:
     save_every: int = 100
 
     def restore(self, template):
+        """``(state, first step)``: the newest checkpoint laid out as
+        ``template`` is (a sharded template: on its own mesh, which may be
+        a shrunk one), or ``template`` and 0 without one."""
         step, state = self.ckpt.restore_latest(template)
         return state, (0 if step is None else step + 1)
 

@@ -24,10 +24,26 @@ Optimizer trees are keyed by ``LM.named_parameters()`` names
 (``layers.<i>.params.<name>``; the untied head is ``head``, JAX's
 ``head/w``).
 
-``constrain`` and ``constrain_params`` return their argument unchanged,
-with rules or without: they are where the JAX package hands a layout to
-XLA's SPMD partitioner, and a PyTorch program has no partitioner to take
-the annotation. Expert parallelism is explicit instead
+Sharded state (ZeRO-3 over every mesh axis). Under rules whose mesh is a
+``DeviceMesh`` the parameters and the optimizer state are ``DTensor`` tensors laid
+out as :func:`param_specs` says (:func:`placements`: ``Shard(d)`` on the
+mesh dims a spec names on tensor dim ``d``, ``Replicate()`` on the others):
+:func:`distribute` is ``jax.device_put`` with shardings,
+:func:`distribute_parameters` does it to a module's own parameters in
+place, :func:`constrain_params` pins a tree to that layout and
+:func:`gather` is ``jax.device_get``. The model computes on whole weights:
+:func:`unshard` gathers a parameter at its use and sends its gradient back
+to the parameter's own placements. The batch is split over the rules'
+``"batch"`` axes: under such rules every tensor handed to the model is this
+rank's block of the global batch (:func:`batch_block`), and the loss and the
+MoE capacity count the global batch through :func:`batch_sum` and
+:func:`batch_gather`.
+
+``constrain`` returns its argument unchanged, with rules or without:
+activations are not sharded (tensor-parallel compute is not ported). Each
+rank computes on its own block of the batch with whole weights, which gives
+the numbers of the JAX package's global program and holds the same state per
+device. Expert parallelism is explicit
 (:func:`repro_torch.models.moe.moe_mlp_ep` over a ``DeviceMesh``).
 """
 from __future__ import annotations
@@ -35,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import sys
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -192,7 +209,8 @@ def active_rules() -> Optional[AxisRules]:
 
 def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """The activation-sharding annotation: ``x`` itself, with rules or
-    without (no SPMD partitioner takes it here)."""
+    without. Activations stay whole on their rank's batch block (see the
+    module docstring); tensor-parallel compute would split them here."""
     return x
 
 
@@ -314,9 +332,285 @@ def replicated(tree: Any, rules: AxisRules) -> Any:
 
 
 def constrain_params(tree: Any) -> Any:
-    """The train step's output pin to :func:`param_specs`: ``tree``
-    itself, with rules or without (see the module docstring)."""
-    return tree
+    """The train step's output pin: under rules whose mesh is a
+    ``DeviceMesh``, every tensor leaf of ``tree`` laid out as
+    :func:`param_specs` says (:func:`distribute`); ``tree`` itself without
+    rules or under a layout-only mesh."""
+    r = _ACTIVE
+    if r is None or not is_device_mesh(r.mesh):
+        return tree
+    return distribute(tree, param_specs(tree, r))
+
+
+# ---------------------------------------------------------------------------
+# Sharded state over a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def is_device_mesh(mesh) -> bool:
+    """A ``torch.distributed`` ``DeviceMesh`` (it has process groups), not a
+    layout :class:`Mesh`."""
+    return hasattr(mesh, "get_group")
+
+
+def is_distributed(x) -> bool:
+    """Whether ``x`` is a ``DTensor``. Its module is imported only once a
+    ``DTensor`` can exist, so the check costs no import."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def _dt():
+    import torch.distributed.tensor as dt
+
+    return dt
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """The ``DTensor`` placements of ``spec`` on a ``DeviceMesh``: per mesh
+    dim, ``Shard(d)`` where the spec names that axis on tensor dim ``d``,
+    else ``Replicate()``. A tuple entry shards one tensor dim over several
+    mesh dims, the first named the major one, which a ``DTensor`` can hold
+    only in the mesh's own dim order."""
+    dt = _dt()
+    names = tuple(mesh.mesh_dim_names)
+    out = [dt.Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"spec entry {entry} runs against the mesh's dim order {names}")
+        for i in dims:
+            out[i] = dt.Shard(d)
+    return tuple(out)
+
+
+def _put(leaf, sharding: Sharding):
+    """One leaf laid out by ``sharding`` (a tensor; anything else as is)."""
+    if not isinstance(leaf, torch.Tensor):
+        return leaf
+    mesh = sharding.mesh
+    want = placements(sharding.spec, mesh)
+    if is_distributed(leaf):
+        if leaf.device_mesh == mesh and tuple(leaf.placements) == want:
+            return leaf
+        if leaf.device_mesh != mesh:
+            raise ValueError("a DTensor of another mesh: gather it first")
+        return leaf.redistribute(mesh, want)
+    # every rank holds the same values: each keeps its own block, no message
+    return _dt().distribute_tensor(leaf.detach().to(mesh.device_type), mesh, want,
+                                   src_data_rank=None)
+
+
+def _zip_map(fn: Callable, tree: Any, other: Any) -> Any:
+    """``fn(leaf, other_leaf)`` over two trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, o) for v, o in zip(tree, other))
+    if tree is None:
+        return None
+    return fn(tree, other)
+
+
+def distribute(tree: Any, specs: Any) -> Any:
+    """``jax.device_put(tree, shardings)``: each tensor leaf of ``tree`` as a
+    ``DTensor`` laid out by its :class:`Sharding` (of :func:`param_specs`,
+    :func:`replicated`, ...) on the sharding's ``DeviceMesh``. Every rank
+    passes the same values and keeps its own block; a ``DTensor`` leaf of
+    that mesh is redistributed where its placements differ."""
+    return _zip_map(_put, tree, specs)
+
+
+def gather(tree: Any) -> Any:
+    """``jax.device_get``: every ``DTensor`` leaf of ``tree`` as its whole
+    value, a plain detached tensor on the leaf's device; other leaves as
+    they are. A collective: every rank of the leaves' mesh calls it."""
+    return _map_with_path(
+        lambda _p, x: x.full_tensor().detach() if is_distributed(x) else x, tree)
+
+
+def distribute_parameters(module: torch.nn.Module, rules: Optional[AxisRules] = None):
+    """Lay out ``module``'s own parameters in place as :func:`param_specs`
+    of their names says on ``rules``' ``DeviceMesh`` (the active rules by
+    default): each becomes a ``DTensor`` parameter, ``requires_grad`` kept.
+    Returns ``module``."""
+    rules = rules or _ACTIVE
+    if rules is None or not is_device_mesh(rules.mesh):
+        raise ValueError("distribute_parameters needs rules over a DeviceMesh")
+    named = dict(module.named_parameters())
+    specs = param_specs(named, rules)
+    for name, p in named.items():
+        if is_distributed(p) and p.device_mesh == rules.mesh and \
+                tuple(p.placements) == placements(specs[name].spec, rules.mesh):
+            continue
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner) if owner else module
+        sub._parameters[leaf] = torch.nn.Parameter(_put(p.detach(), specs[name]),
+                                                   requires_grad=p.requires_grad)
+    return module
+
+
+def _batch_axes(mesh=None) -> Tuple[str, ...]:
+    """The mesh axes of size > 1 that split the batch under the active
+    rules, major first; () without rules or under a layout-only mesh.
+    ``mesh`` (a ``DTensor``'s) must be the rules' mesh."""
+    r = _ACTIVE
+    if r is None or not is_device_mesh(r.mesh):
+        return ()
+    if mesh is not None and mesh != r.mesh:
+        raise ValueError("a DTensor on another mesh than the active rules': its gradient "
+                         "would not be summed over the rules' batch blocks")
+    return tuple(a for a in r.mesh_axes("batch") if r.sizes[a] > 1)
+
+
+def batch_ranks() -> Tuple[int, int]:
+    """``(n, i)``: the number of batch blocks under the active rules and
+    this rank's, major first (``(1, 0)`` where the batch is not split)."""
+    n, i = 1, 0
+    mesh = _ACTIVE.mesh if _ACTIVE is not None else None
+    for a in _batch_axes():
+        n, i = n * _ACTIVE.sizes[a], i * _ACTIVE.sizes[a] + mesh.get_local_rank(a)
+    return n, i
+
+
+def batch_block(tree: Any, microbatches: int = 1) -> Any:
+    """This rank's block of a global batch (leaves (B, ...)) as
+    ``batch_specs`` lays it out: of each of the ``microbatches`` global
+    microbatches (consecutive rows), the rows of this rank's batch block,
+    in order. The tree itself where the batch is not split."""
+    n, i = batch_ranks()
+    if n == 1:
+        return tree
+
+    def block(path, x):
+        b = x.shape[0]
+        if b % (microbatches * n):
+            raise ValueError(f"batch {b} not divisible by microbatches {microbatches} x "
+                             f"{n} batch blocks")
+        bl = b // (microbatches * n)
+        x = x.reshape(microbatches, b // microbatches, *x.shape[1:])[:, i * bl:(i + 1) * bl]
+        return x.reshape(microbatches * bl, *x.shape[2:])
+
+    return _map_with_path(block, tree)
+
+
+class _BatchSum(torch.autograd.Function):
+    """All-reduce sum over the batch axes' groups; the gradient passes
+    through as it is: each rank's part of the sum is its own block's."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        import torch.distributed as dist
+
+        y = x.clone()
+        for g in groups:
+            dist.all_reduce(y, group=g)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks that split the batch (a sum over the
+    global batch when ``x`` sums this rank's block), ``x`` itself where the
+    batch is not split. Its gradient is the identity, so each rank's
+    gradient is its block's part, which the parameters' ``Partial`` gradient
+    placements sum."""
+    axes = _batch_axes()
+    if not axes:
+        return x
+    return _BatchSum.apply(x, [_ACTIVE.mesh.get_group(a) for a in axes])
+
+
+def batch_gather(x: torch.Tensor) -> torch.Tensor:
+    """``(n, *x.shape)``: every batch block's ``x`` in block order (no
+    gradient); ``x[None]`` where the batch is not split."""
+    import torch.distributed as dist
+
+    x, stacked = x.detach().contiguous(), False
+    for a in reversed(_batch_axes()):                 # minor axis first
+        parts = [torch.empty_like(x) for _ in range(_ACTIVE.sizes[a])]
+        dist.all_gather(parts, x, group=_ACTIVE.mesh.get_group(a))
+        x = torch.stack(parts)
+        x, stacked = (x.reshape(-1, *x.shape[2:]) if stacked else x), True
+    return x if stacked else x[None]
+
+
+def local_part(x):
+    """This rank's block of a ``DTensor``, anything else as it is."""
+    return x.to_local() if is_distributed(x) else x
+
+
+def like(ref, x: torch.Tensor):
+    """``x``, a local block computed for ``ref``, as a ``DTensor`` of
+    ``ref``'s mesh, placements and global shape where ``ref`` is one;
+    ``x`` itself otherwise."""
+    if not is_distributed(ref):
+        return x
+    return _dt().DTensor.from_local(x, ref.device_mesh, ref.placements, run_check=False,
+                                    shape=ref.shape, stride=ref.stride())
+
+
+def _mesh_of(refs: Sequence) -> Any:
+    return next((r.device_mesh for r in refs if is_distributed(r)), None)
+
+
+def shard_sums(sums: Sequence[torch.Tensor], refs: Sequence) -> list:
+    """Each tensor's whole sum from ``sums``, the 0-dim sums of the local
+    parts of ``refs``: summed over the mesh dims that shard it, a
+    replicated dim's copies counted once (plain tensors are replicated).
+    One all-reduce per mesh dim of size > 1; ``sums`` as given without a
+    ``DTensor`` among ``refs``."""
+    import torch.distributed as dist
+
+    mesh = _mesh_of(refs)
+    if mesh is None:
+        return list(sums)
+    dt = _dt()
+    v = torch.stack(list(sums))
+    for dim, name in enumerate(mesh.mesh_dim_names):
+        if mesh.size(dim) == 1:
+            continue
+        first = 1.0 if mesh.get_local_rank(name) == 0 else 0.0
+        keep = [1.0 if is_distributed(r) and isinstance(r.placements[dim], dt.Shard) else first
+                for r in refs]
+        v = v * torch.tensor(keep, dtype=v.dtype, device=v.device)
+        dist.all_reduce(v, group=mesh.get_group(name))
+    return list(v.unbind())
+
+
+def shard_max(x: torch.Tensor, refs: Sequence) -> torch.Tensor:
+    """``x`` (a max over local parts of ``refs``) maxed over every mesh dim,
+    ``x`` itself without a ``DTensor`` among ``refs``."""
+    import torch.distributed as dist
+
+    mesh = _mesh_of(refs)
+    if mesh is None:
+        return x
+    x = x.clone()
+    for dim, name in enumerate(mesh.mesh_dim_names):
+        if mesh.size(dim) > 1:
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.get_group(name))
+    return x
+
+
+def unshard(t: torch.Tensor) -> torch.Tensor:
+    """A parameter whole, for compute: ZeRO-3's gather at use. A ``DTensor``
+    comes back as a plain tensor on every rank, its gradient sent back as a
+    ``DTensor`` with the parameter's placements: ``Partial`` over the mesh
+    dims that split the batch (each rank's gradient is its block's part),
+    ``Replicate`` over the others (their ranks hold the same tokens, and a
+    sum there would count them twice). Anything else comes back as it is."""
+    if not is_distributed(t):
+        return t
+    dt = _dt()
+    mesh = t.device_mesh
+    split = _batch_axes(mesh)
+    grads = [dt.Partial() if a in split else dt.Replicate() for a in mesh.mesh_dim_names]
+    return t.redistribute(mesh, [dt.Replicate()] * mesh.ndim).to_local(grad_placements=grads)
 
 
 # ---------------------------------------------------------------------------

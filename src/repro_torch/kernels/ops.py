@@ -22,10 +22,20 @@ nothing is launched or counted, and the plain scans' loops over time are
 not run either. Attention on meta never reaches ``flash_attention``
 (``models/attention.py`` sends it only CUDA tensors; meta takes the plain
 blocked attention). The other kernels take no meta tensor.
+
+No wrapper takes a ``DTensor`` (a sharded tensor of
+``torch.distributed.tensor``): its ``data_ptr`` is not its shard's memory,
+and the plain versions would compute on it through the ``DTensor``
+dispatch, densifying where they need to. Each wrapper and
+:class:`KernelFunction` raise a ``TypeError`` instead; a sharded model
+hands its kernels the whole tensors it gathered
+(:func:`repro_torch.distributed.unshard`).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.sharding import is_distributed
 
 from . import belief_aggregate as _belief_aggregate
 from . import flash_attention as _flash_attention
@@ -33,6 +43,14 @@ from . import mamba_scan as _mamba_scan
 from . import mc_correctness as _mc_correctness
 from . import ref
 from . import rglru_scan as _rglru_scan
+
+
+def _refuse_distributed(*tensors) -> None:
+    for t in tensors:
+        if is_distributed(t):
+            raise TypeError("a kernel wrapper was handed a DTensor: kernels take whole local "
+                            "tensors (gather a sharded parameter with "
+                            "repro_torch.distributed.unshard first)")
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -46,6 +64,7 @@ def belief_aggregate(responses, log_weights, empty_belief, num_classes: int):
     """Batched router aggregation: ``(log_beliefs (B, K) f32, predictions
     (B,) int32)``. ``log_weights`` may be (B, M) or (M,), ``empty_belief``
     a scalar or (B,); responses of -1 mark arms not invoked."""
+    _refuse_distributed(responses, log_weights, empty_belief)
     if _device_kind(responses) == "cpu":
         return ref.belief_aggregate_ref(responses, log_weights, empty_belief, num_classes)
     B, M = responses.shape
@@ -66,6 +85,7 @@ belief_aggregate.launches = 0
 def mc_correctness(responses, masks, log_weights, empty_belief, num_classes: int):
     """(C,) f32 xi estimates of C candidate masks over one pool's shared
     (T, L) draws; ``empty_belief`` is a scalar."""
+    _refuse_distributed(responses, masks, log_weights, empty_belief)
     if _device_kind(responses) == "cpu":
         return ref.mc_correctness_ref(responses, masks, log_weights, empty_belief, num_classes)
     dev = responses.device
@@ -85,6 +105,7 @@ def mc_correctness_grouped(responses, masks, log_weights, empty_belief,
                            valid, theta, num_classes: int):
     """(G, C) f32 xi estimates over the planner's stacked (G, theta, L)
     draws; ragged thetas are carried by the ``valid`` mask."""
+    _refuse_distributed(responses, masks, log_weights, empty_belief, valid, theta)
     if _device_kind(responses) == "cpu":
         return ref.mc_correctness_grouped_ref(
             responses, masks, log_weights, empty_belief, valid, theta, num_classes,
@@ -116,6 +137,7 @@ class KernelFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, launch, plain, kwargs, *inputs):
+        _refuse_distributed(*inputs)
         ctx.plain, ctx.kwargs = plain, kwargs
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(*inputs)
@@ -150,6 +172,7 @@ def _launch_flash(q, k, v, causal, window):
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """(B, S, H, hd) x (B, T, G, hd) -> (B, S, H, hd) causal / windowed GQA
     attention in q's dtype (f32 or bf16), 1 <= hd <= 256."""
+    _refuse_distributed(q, k, v)
     if _device_kind(q) == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return KernelFunction.apply(_launch_flash, ref.flash_attention_ref,
@@ -168,6 +191,7 @@ def _launch_rglru(log_a, gated, h0):
 
 def rglru_scan(log_a, gated, h0):
     """Diagonal linear recurrence in f32: ``(h (B, S, D), h_last (B, D))``."""
+    _refuse_distributed(log_a, gated, h0)
     f32 = lambda t: t.to(torch.float32).contiguous()
     if log_a.device.type == "meta":
         return (log_a.new_empty(log_a.shape, dtype=torch.float32),
@@ -194,6 +218,7 @@ def mamba_scan(x, dt, A, Bmat, Cmat, Dskip, h0=None):
     float dtype is widened here, exactly), the recurrence in f32,
     ``h0=None`` a zero state. On the card nothing is cast or copied around
     the launch of the block's own tensors."""
+    _refuse_distributed(x, dt, A, Bmat, Cmat, Dskip, h0)
     if x.device.type == "meta":
         return (x.new_empty(x.shape),
                 x.new_empty((x.shape[0], x.shape[2], A.shape[1]), dtype=torch.float32))

@@ -17,10 +17,24 @@ of state) are within one; the 7-111 B configs are not, and train at
 checkpoint under ``--ckpt/<config name>`` (default under the
 repository's ``build/``) and saves every ``--save-every`` steps; a resumed
 run prints ``resumed from step <n>``.
+
+``--mesh DATAxMODEL`` trains sharded: every rank of a ``torch.distributed``
+world (started by ``torchrun``, which sets ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR`` and ``MASTER_PORT``; NCCL with one card a rank, gloo with
+``--device cpu``) runs this launcher, the state laid out over a
+``("data", "model")`` ``DeviceMesh`` as ``param_specs`` says and each step
+on the same global batch, split over the data axis::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch smollm-135m \
+        --smoke --steps 20 --device cpu --mesh 2x2
+
+Rank 0 prints and writes the checkpoints (every rank gathers for a save).
+Every rank builds the whole model before it is distributed.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from pathlib import Path
@@ -51,14 +65,57 @@ def main(argv=None) -> None:
     ap.add_argument("--compress", default="none", choices=["none", "int8", "topk"])
     ap.add_argument("--device", default="cuda",
                     help="where to train (cuda needs a card; cpu runs the plain versions)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="train sharded over a (data, model) mesh of the torchrun world")
     args = ap.parse_args(argv)
 
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = LM(cfg, device=args.device, seed=0)
-    comp = CompressionConfig(codec=args.compress)
+    device, rules, rank, joined = args.device, contextlib.nullcontext(), 0, False
+    if args.mesh:
+        device, rules, rank, joined = _join_world(args.mesh, args.device)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    try:
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+        model = LM(cfg, device=device, seed=0)
+        comp = CompressionConfig(codec=args.compress)
+        with rules:
+            _train(args, cfg, model, comp, rank, say)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _join_world(mesh: str, device: str):
+    """``(this rank's device, the sharding rules' context, rank, whether
+    the process group was started here)`` for ``--mesh``: the process
+    group (from torchrun's environment, unless one is up) and a
+    ``("data", "model")`` mesh over it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import AxisRules, use_rules
+    from repro_torch.launch.mesh import make_mesh
+
+    shape = tuple(int(n) for n in mesh.lower().split("x"))
+    kind = torch.device(device).type
+    if kind == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+    joined = not dist.is_initialized()
+    if joined:
+        dist.init_process_group("nccl" if kind == "cuda" else "gloo", init_method="env://",
+                                **({"device_id": dev} if kind == "cuda" else {}))
+    rules = use_rules(AxisRules(make_mesh(shape, ("data", "model"), kind)))
+    return dev, rules, dist.get_rank(), joined
+
+
+def _train(args, cfg, model, comp, rank: int, say) -> None:
     params, opt = init_train_state(model, comp)
     n = sum(p.numel() for p in params.values())
-    print(f"[{cfg.name}] {n/1e6:.2f}M params, {args.steps} steps")
+    say(f"[{cfg.name}] {n/1e6:.2f}M params, {args.steps} steps")
 
     step_fn = make_train_step(
         model, OptimizerConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps), comp,
@@ -76,12 +133,12 @@ def main(argv=None) -> None:
         return b
 
     pipe = DataPipeline(make_batch)
-    mgr = CheckpointManager(os.path.join(args.ckpt, cfg.name))
+    mgr = CheckpointManager(os.path.join(args.ckpt, cfg.name), host_id=rank)
     driver = FaultTolerantDriver(mgr, save_every=args.save_every)
     state, start = driver.restore({"params": params, "opt": opt})
     params, opt = state["params"], state["opt"]
     if start:
-        print(f"resumed from step {start - 1}")
+        say(f"resumed from step {start - 1}")
 
     t0 = time.time()
     try:
@@ -89,10 +146,10 @@ def main(argv=None) -> None:
             params, opt, m = step_fn(params, opt, next(pipe))
             driver.maybe_save(s, {"params": params, "opt": opt})
             if s % 10 == 0 or s == args.steps - 1:
-                print(f"step {s:4d} loss {float(m['loss']):.4f} lr {float(m['lr']):.2e}")
+                say(f"step {s:4d} loss {float(m['loss']):.4f} lr {float(m['lr']):.2e}")
     finally:
         pipe.close()
-    print(f"done in {time.time()-t0:.1f}s")
+    say(f"done in {time.time()-t0:.1f}s")
 
 
 if __name__ == "__main__":

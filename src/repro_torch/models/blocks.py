@@ -18,9 +18,13 @@ Caches hold, per attention layer, ``k``/``v`` (B, T, G, hd) in the model
 dtype after RoPE (int8 with ``k_scale``/``v_scale`` (B, T, G, 1) f32 when
 quantized), per SSM layer ``conv`` (B, K-1, d_inner) and ``h`` (B,
 d_inner, N) f32, per recurrent layer ``conv`` (B, K-1, Dr) and ``h`` (B,
-Dr) f32: the JAX leaves of one layer, time on dim 1. The ``constrain``
-sharding annotations have no counterpart (no SPMD partitioner takes
-them); the expert-parallel MoE runs over a ``DeviceMesh`` (``_moe_ffn``).
+Dr) f32: the JAX leaves of one layer, time on dim 1. The blocks take
+whole parameters (a sharded model gathers them first,
+``models/model.py``) and, under rules over a ``DeviceMesh``, this rank's
+block of the batch: activations are not sharded, so the JAX package's
+``constrain`` annotations have nothing to do here. The MoE FFN counts its
+capacity over the global batch then, and the expert-parallel MoE runs over
+the ``DeviceMesh`` (``_moe_ffn``).
 """
 from __future__ import annotations
 
@@ -157,7 +161,8 @@ def attn_block_decode(params, x: torch.Tensor, cache: Cache, cfg: ModelConfig, p
 
 def _moe_ffn(params, x: torch.Tensor, cfg: ModelConfig):
     """The MoE FFN over every token of ``x`` (B, S, D): ``(output, aux)``;
-    the capacity counts these B * S tokens. Under ``cfg.moe_ep`` with
+    the capacity counts these B * S tokens, or under rules over a
+    ``DeviceMesh`` those of the global batch (``moe_mlp``). Under ``cfg.moe_ep`` with
     active sharding rules whose mesh has a ``"model"`` axis, the
     expert-parallel dispatch over that mesh (a ``DeviceMesh``; ``x`` is
     this rank's batch shard; each rank takes its rows of the full expert

@@ -7,9 +7,19 @@ then the pattern unit), each holding its parameters under the JAX names.
 The layers run as a Python loop where the JAX package scans stacked
 segments; ``cfg.remat`` runs each layer under ``torch.utils.checkpoint``
 while grad is enabled (JAX's ``jax.checkpoint``; the numbers do not
-change), and the ``constrain`` sharding annotations have no counterpart.
-Parameters are frozen for serving; the trainer unfreezes them
+change). Parameters are frozen for serving; the trainer unfreezes them
 (:func:`repro_torch.training.init_train_state`).
+
+Sharded (under rules over a ``DeviceMesh``, the parameters ``DTensor`` tensors
+laid out by ``param_specs``:
+:func:`repro_torch.distributed.distribute_parameters`): each layer gathers
+its parameters whole at their use (:func:`~repro_torch.distributed.unshard`,
+ZeRO-3), inside its ``checkpoint`` region, so that under remat the backward
+gathers them again instead of keeping every layer whole; the embedding,
+final norm and head are gathered once per call. The tokens are this rank's
+block of the batch, and the loss sums its nll and count over the global
+batch (:func:`~repro_torch.distributed.batch_sum`). Activations are not
+sharded: the ``constrain`` annotations stay the identity.
 
 Serving one token at a time: :meth:`LM.prefill` runs the full-sequence
 blocks (through the model kernels on the card) and keeps each layer's
@@ -42,6 +52,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import batch_sum, unshard
+
 from . import blocks as B
 from .config import ModelConfig
 from .init import init_params, unstack_params
@@ -72,35 +84,42 @@ class Block(nn.Module):
         self.cfg = cfg
         self.params = nn.ParameterDict({k: _frozen(v) for k, v in params.items()})
 
+    def whole_params(self) -> Dict[str, torch.Tensor]:
+        """The parameters by JAX name, whole: gathered where distributed."""
+        return {k: unshard(v) for k, v in self.params.items()}
+
     def forward(self, x: torch.Tensor, window: int):
         """``(output, aux)``: the aux loss of a MoE layer, None for the others."""
+        params = self.whole_params()
         if self.btype == "moe":
-            return B.moe_block(self.params, x, self.cfg, window=window)
+            return B.moe_block(params, x, self.cfg, window=window)
         if self.btype == "attn":
-            return B.attn_block(self.params, x, self.cfg, window=window), None
+            return B.attn_block(params, x, self.cfg, window=window), None
         if self.btype == "ssm":
-            return B.ssm_block(self.params, x, self.cfg), None
-        return B.rec_block(self.params, x, self.cfg), None
+            return B.ssm_block(params, x, self.cfg), None
+        return B.rec_block(params, x, self.cfg), None
 
     def prefill(self, x: torch.Tensor, window: int):
         """``(output, cache)`` over the whole sequence."""
+        params = self.whole_params()
         if self.btype == "moe":
-            x, _, cache = B.moe_block(self.params, x, self.cfg, window=window, make_cache=True)
+            x, _, cache = B.moe_block(params, x, self.cfg, window=window, make_cache=True)
             return x, cache
         if self.btype == "attn":
-            return B.attn_block(self.params, x, self.cfg, window=window, make_cache=True)
+            return B.attn_block(params, x, self.cfg, window=window, make_cache=True)
         if self.btype == "ssm":
-            return B.ssm_block(self.params, x, self.cfg, make_cache=True)
-        return B.rec_block(self.params, x, self.cfg, make_cache=True)
+            return B.ssm_block(params, x, self.cfg, make_cache=True)
+        return B.rec_block(params, x, self.cfg, make_cache=True)
 
     def decode(self, x: torch.Tensor, cache: B.Cache, pos: int, window: int,
                ring: Optional[torch.Tensor]) -> torch.Tensor:
         """One token (B, 1, D); ``cache`` is written in place."""
+        params = self.whole_params()
         if self.btype in ("attn", "moe"):
             fn = B.attn_block_decode if self.btype == "attn" else B.moe_block_decode
-            return fn(self.params, x, cache, self.cfg, pos, window=window, ring_pos=ring)[0]
+            return fn(params, x, cache, self.cfg, pos, window=window, ring_pos=ring)[0]
         fn = B.ssm_block_decode if self.btype == "ssm" else B.rec_block_decode
-        return fn(self.params, x, cache, self.cfg, pos)[0]
+        return fn(params, x, cache, self.cfg, pos)[0]
 
 
 class LM(nn.Module):
@@ -160,15 +179,23 @@ class LM(nn.Module):
               frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Token embeddings (B, S, D), after the frontend embeddings (B, Lf,
         D) cast to the model dtype where they are given."""
-        h = self.tok[tokens]
-        if frontend_embeds is not None:
-            h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
-        return h
+        return _embed(unshard(self.tok), tokens, frontend_embeds)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """(..., D) -> (..., V) over the padded vocabulary."""
-        h = rmsnorm(h, self.final_norm, self.cfg.norm_eps)
-        logits = h @ (self.tok.T if self.head is None else self.head)
+        return self._logits(h, *self._whole_head(unshard(self.tok) if self.head is None else None))
+
+    def _whole_head(self, tok: torch.Tensor):
+        """``(final_norm, output matrix (D, V))`` whole: the untied head, or
+        the transpose of ``tok``, the embedding already gathered (unused
+        where the head is untied)."""
+        out = tok.T if self.head is None else unshard(self.head)
+        return unshard(self.final_norm), out
+
+    def _logits(self, h: torch.Tensor, norm: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """:meth:`logits` on the whole final norm and output matrix."""
+        h = rmsnorm(h, norm, self.cfg.norm_eps)
+        logits = h @ out
         if self.cfg.logits_softcap > 0:
             c = self.cfg.logits_softcap
             if torch.is_grad_enabled():
@@ -195,8 +222,9 @@ class LM(nn.Module):
                 frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens (B, S) [after frontend embeddings (B, Lf, D)] -> logits
         (B, Lf + S, V) in ``cfg.dtype``."""
-        h, _ = self.backbone(self.embed(tokens, frontend_embeds))
-        return self.logits(h)
+        tok = unshard(self.tok)                          # gathered once for both ends
+        h, _ = self.backbone(_embed(tok, tokens, frontend_embeds))
+        return self._logits(h, *self._whole_head(tok))
 
     # ------------------------------------------------------------- serving
     def attn_cache_len(self, seq_len: int) -> int:
@@ -303,12 +331,17 @@ class LM(nn.Module):
         masked) of each position against the next token: without a frontend
         every position but the last; with one, the last frontend position
         and every token position but the last, against the tokens. MoE
-        configs add ``0.01 * aux / num_layers`` to the loss."""
+        configs add ``0.01 * aux / num_layers`` to the loss. Where the batch
+        is split over ranks (``batch`` this rank's block), the nll's sum and
+        count are the global batch's, and the loss is the same on every
+        rank."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         fe = batch.get("frontend_embeds")
         fe = None if fe is None else torch.as_tensor(fe, device=self.device)
-        h = self.embed(tokens, fe)
+        tok = unshard(self.tok)                          # gathered once for both ends
+        head = self._whole_head(tok)
+        h = _embed(tok, tokens, fe)
         Bsz, S = h.shape[0], h.shape[1]
         Lf = 0 if fe is None else fe.shape[1]
         targets = torch.full((Bsz, S), IGNORE, dtype=torch.long, device=self.device)
@@ -318,29 +351,39 @@ class LM(nn.Module):
             targets[:, : S - 1] = tokens[:, 1:]
         h, aux = self.backbone(h)
         if cfg.loss_chunk and cfg.loss_chunk < S:
-            nloss, ncount = self._chunked_xent(h, targets)
+            nloss, ncount = self._chunked_xent(h, targets, head)
         else:
-            nloss, ncount = _xent_sum(self.logits(h), targets, cfg.vocab_size)
-        nll = nloss / torch.clamp(ncount, min=1.0)
+            nloss, ncount = _xent_sum(self._logits(h, *head), targets, cfg.vocab_size)
+        nll = batch_sum(nloss) / torch.clamp(batch_sum(ncount), min=1.0)
         loss = nll
         if cfg.num_experts:
             loss = nll + 0.01 * aux / max(len(cfg.layer_types), 1)
         return loss, {"nll": nll, "aux": aux}
 
-    def _chunked_xent(self, h: torch.Tensor, targets: torch.Tensor):
+    def _chunked_xent(self, h: torch.Tensor, targets: torch.Tensor, head):
         """``(sum of nll, count)`` over ``cfg.loss_chunk`` positions at a
         time, then the remainder."""
         c, S = self.cfg.loss_chunk, h.shape[1]
         n = S // c
         nloss = ncount = torch.zeros((), dtype=torch.float32, device=h.device)
         for i in range(n):
-            l, k = _xent_sum(self.logits(h[:, i * c:(i + 1) * c]), targets[:, i * c:(i + 1) * c],
-                             self.cfg.vocab_size)
+            l, k = _xent_sum(self._logits(h[:, i * c:(i + 1) * c], *head),
+                             targets[:, i * c:(i + 1) * c], self.cfg.vocab_size)
             nloss, ncount = nloss + l, ncount + k
         if n * c < S:                                  # remainder
-            l, k = _xent_sum(self.logits(h[:, n * c:]), targets[:, n * c:], self.cfg.vocab_size)
+            l, k = _xent_sum(self._logits(h[:, n * c:], *head), targets[:, n * c:],
+                             self.cfg.vocab_size)
             nloss, ncount = nloss + l, ncount + k
         return nloss, ncount
+
+
+def _embed(tok: torch.Tensor, tokens: torch.Tensor,
+           frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """:meth:`LM.embed` on the whole embedding ``tok``."""
+    h = tok[tokens]
+    if frontend_embeds is not None:
+        h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
+    return h
 
 
 def _xent_sum(logits: torch.Tensor, targets: torch.Tensor, vocab: int):

@@ -11,6 +11,14 @@ Dispatch is the JAX package's static-shape formulation:
      expert product (E, C, D) x (E, D, F), and combined back weighted by
      the combine weights.
 
+Under sharding rules over a ``DeviceMesh`` the tokens are this rank's
+block of a batch split over the rules' batch axes, and the dense path
+computes what the JAX package's global program does: the capacity is that
+of the global batch's tokens, a (token, slot)'s rank within its expert
+counts the pairs of the lower batch blocks first (an all-gather of E
+counts), and the aux loss takes the global token and probability
+fractions (all-reduced sums).
+
 The expert FFN is plain ``torch.bmm`` (the JAX package computes it as
 einsums outside any Pallas kernel); on the card the products go to cuBLAS.
 The router product runs in f32 as JAX's does: with TF32 on for f32
@@ -34,6 +42,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import batch_gather, batch_ranks, batch_sum
 
 
 def _total_order_key(x: torch.Tensor) -> torch.Tensor:
@@ -68,10 +78,14 @@ def moe_mlp(
     k: int,
     capacity_factor: float = 1.25,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output (T, D) in x's dtype, f32 aux load-balancing loss)."""
+    """Returns (output (T, D) in x's dtype, f32 aux load-balancing loss).
+    Where the batch is split over ranks, ``x`` is this rank's block and the
+    capacity, the ranks within each expert and the aux are the global
+    batch's (see the module docstring)."""
     T, D = x.shape
     E = router_w.shape[1]
-    C = capacity_for(T, E, k, capacity_factor)
+    blocks, block = batch_ranks()
+    C = capacity_for(T * blocks, E, k, capacity_factor)
     dev = x.device
 
     logits = x.float() @ router_w.float()                       # (T, E) f32
@@ -87,7 +101,10 @@ def moe_mlp(
     onehot = (experts == flat_expert[None, :]).to(torch.int32)  # (E, T*k)
     pos_in_expert = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
     slot = pos_in_expert.gather(0, flat_expert[None, :])[0]
-    keep = slot < C                                             # capacity drop
+    # the lower batch blocks' pairs come first in each expert (none unsplit)
+    counts = batch_gather(onehot.sum(dim=1, dtype=torch.int32))           # (blocks, E)
+    offset = counts[:block].sum(dim=0, dtype=torch.int32)
+    keep = slot + offset[flat_expert] < C                       # capacity drop
 
     # Scatter token features into the (E, C, D) dispatch buffer; dropped
     # pairs land on a scratch row past the buffer.
@@ -111,8 +128,10 @@ def moe_mlp(
 
     # Switch-style load-balance auxiliary loss.
     probs = torch.softmax(logits, dim=-1)                       # (T, E)
-    frac_tokens = F.one_hot(expert_idx[:, 0], E).float().mean(dim=0)
-    frac_probs = probs.mean(dim=0)
+    tokens = torch.full((), float(T * blocks), dtype=torch.float32, device=dev)
+    first = F.one_hot(expert_idx[:, 0], E).float()              # the global batch's means
+    frac_tokens = batch_sum(first.sum(dim=0)) / tokens
+    frac_probs = batch_sum(probs.sum(dim=0)) / tokens
     aux = E * (frac_tokens * frac_probs).sum()
     return out, aux
 

@@ -11,6 +11,13 @@ correction, decoupled weight decay, then the master weights cast to each
 parameter's dtype. A scalar that divides a tensor is a tensor here: torch
 turns ``scalar / t`` (and, on CUDA, ``t / scalar``) into a multiply by a
 reciprocal, which JAX does not.
+
+Sharded state: where the parameters are ``DTensor`` tensors
+(:mod:`repro_torch.distributed.sharding`), the moments and master weights
+have their parameter's placements, every update is computed on the local
+blocks (the same numbers, element by element) and the global norm sums
+each gradient's squares over its shards (:func:`global_norm`), so clipping
+scales every rank alike.
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ import math
 from typing import Dict, Tuple
 
 import torch
+
+from repro_torch.distributed.sharding import like, local_part, shard_sums
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -57,27 +66,36 @@ def lr_at(cfg: OptimizerConfig, step) -> torch.Tensor:
 
 
 def adamw_init(params: Tensors) -> Dict:
-    """Zero moments, an f32 copy of every parameter and step 0."""
+    """Zero moments, an f32 copy of every parameter (each with its
+    parameter's placements where distributed) and step 0."""
     any_p = next(iter(params.values()))
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
     return {
-        "m": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()},
-        "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()},
+        "m": {k: zeros(p) for k, p in params.items()},
+        "v": {k: zeros(p) for k, p in params.items()},
         "master": {k: p.detach().to(torch.float32, copy=True) for k, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=any_p.device),
     }
 
 
+def sum_squares(tree: Tensors) -> list:
+    """Each tensor's f32 sum of squares over its whole value (a
+    ``DTensor``'s over all its shards)."""
+    leaves = list(tree.values())
+    return shard_sums([local_part(x).to(torch.float32).square().sum() for x in leaves], leaves)
+
+
 def global_norm(tree: Tensors) -> torch.Tensor:
-    """sqrt of the sum over tensors of each one's f32 sum of squares."""
-    leaves = [x.to(torch.float32).square().sum() for x in tree.values()]
-    return torch.sqrt(torch.stack(leaves).sum())
+    """sqrt of the sum over tensors of each one's f32 sum of squares: a
+    plain scalar, the same on every rank."""
+    return torch.sqrt(torch.stack(sum_squares(tree)).sum())
 
 
 def adamw_update(grads: Tensors, opt_state: Dict, params: Tensors,
                  cfg: OptimizerConfig) -> Tuple[Tensors, Dict, Tensors]:
     """One AdamW step. Returns ``(new_params, new_state, {"lr",
     "grad_norm"})``; nothing given is changed in place."""
-    step = opt_state["step"] + 1
+    step = local_part(opt_state["step"]) + 1
     lr = lr_at(cfg, step)
     b1, b2 = cfg.betas
 
@@ -90,13 +108,15 @@ def adamw_update(grads: Tensors, opt_state: Dict, params: Tensors,
 
     m, v, master, new_params = {}, {}, {}, {}
     for k, g in grads.items():
-        g = g.to(torch.float32) * scale
-        m[k] = b1 * opt_state["m"][k] + (1 - b1) * g
-        v[k] = b2 * opt_state["v"][k] + (1 - b2) * g * g
-        mh = m[k] / bc1
-        vh = v[k] / bc2
-        mp = opt_state["master"][k]
-        master[k] = mp - lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * mp)
-        new_params[k] = master[k].to(params[k].dtype)
-    new_state = {"m": m, "v": v, "master": master, "step": step}
+        g = local_part(g).to(torch.float32) * scale
+        mk = b1 * local_part(opt_state["m"][k]) + (1 - b1) * g
+        vk = b2 * local_part(opt_state["v"][k]) + (1 - b2) * g * g
+        mh = mk / bc1
+        vh = vk / bc2
+        mp = local_part(opt_state["master"][k])
+        mpk = mp - lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * mp)
+        ref = params[k]
+        m[k], v[k], master[k] = like(ref, mk), like(ref, vk), like(ref, mpk)
+        new_params[k] = like(ref, mpk.to(ref.dtype))
+    new_state = {"m": m, "v": v, "master": master, "step": like(opt_state["step"], step)}
     return new_params, new_state, {"lr": lr, "grad_norm": gnorm}

@@ -1,8 +1,9 @@
 """Ranks of a ``torch.distributed`` gloo world on the CPU for the
 expert-parallel MoE tests: a ``(data, model)`` ``DeviceMesh``, each rank
 on one torch thread. This module imports no JAX, so spawned ranks start
-fast; ``run_world`` runs a function on every rank and returns what each
-rank saved.
+fast; ``run_world`` runs a function on every rank (this module's
+``_rank_work`` unless another is given, on a mesh of ``MESH`` unless
+another shape is given) and returns what each rank saved.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, world: int, port: int, out: str, inputs: dict) -> None:
+def _rank_main(rank: int, world: int, port: int, out: str, inputs: dict, work=None,
+               mesh_shape=MESH) -> None:
     if SRC not in sys.path:
         sys.path.insert(0, SRC)
     torch.set_num_threads(1)
@@ -50,8 +52,8 @@ def _rank_main(rank: int, world: int, port: int, out: str, inputs: dict) -> None
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)
     try:
-        mesh = init_device_mesh("cpu", MESH, mesh_dim_names=("data", "model"))
-        torch.save(_rank_work(mesh, inputs), f"{out}/rank{rank}.pt")
+        mesh = init_device_mesh("cpu", tuple(mesh_shape), mesh_dim_names=("data", "model"))
+        torch.save((work or _rank_work)(mesh, inputs), f"{out}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
@@ -88,11 +90,14 @@ def _rank_work(mesh, inputs: dict) -> dict:
             "ep_calls": len(calls)}
 
 
-def run_world(out: str, inputs: dict, timeout_s: float = 240.0) -> list:
-    """Run the (2, 2) world's four ranks; each rank's saved results."""
+def run_world(out: str, inputs: dict, timeout_s: float = 240.0, work=None,
+              mesh_shape=MESH) -> list:
+    """Run the world's ranks (four on the default (2, 2) mesh), each calling
+    ``work(mesh, inputs)`` (a module-level function); each rank's saved
+    results, by rank."""
     ctx = multiprocessing.get_context("spawn")
-    world, port = MESH[0] * MESH[1], _free_port()
-    procs = [ctx.Process(target=_rank_main, args=(r, world, port, out, inputs))
+    world, port = mesh_shape[0] * mesh_shape[1], _free_port()
+    procs = [ctx.Process(target=_rank_main, args=(r, world, port, out, inputs, work, mesh_shape))
              for r in range(world)]
     for p in procs:
         p.start()

@@ -11,7 +11,9 @@
   devices) over ``jax.eval_shape`` trees; a port leaf's spec is the JAX
   stacked leaf's without its leading stacked dim (trailing ``None``
   entries are not significant in either).
-* ``constrain`` and ``constrain_params`` are the identity, rules or not.
+* ``constrain`` is the identity, rules or not; ``constrain_params`` is
+  too without rules and under a layout mesh (it pins a tree to
+  ``param_specs`` only over a ``DeviceMesh``, ``tests/test_torch_sharded_train.py``).
 * ``replica_mesh`` is None on the CPU and on one card, and a
   ``("replica",)`` mesh over ``min(R, n)`` cards with a patched count.
 """
