@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path — the router, the continuous-
 batching front door, the replica plane and the serve CLI — GreedyLLM and
-the paper's baselines, its training path (gradients through the model
+the paper's baselines, the planner's hostgamma baseline and the port's
+static checks, its training path (gradients through the model
 kernels, the train step, the training CLI with restart, the
 train-calibrate-serve pipeline), every architecture of its registry and
 their prefill and decode steps with KV and recurrent caches on one CUDA
@@ -304,7 +305,23 @@ Phases:
     printed loss held to the one-card runs' (step 0 equal, the others
     within ``LAUNCHER_REL``)
     (else each line says it was not run). A ``[sharded]`` line prints the
-    numbers beside the card's name and power limit.
+    numbers beside the card's name and power limit;
+21. the planner baseline and the port's thriftlint — (a) the reference
+    bench's raw-speed planner setting (``HOSTGAMMA``: L=12, K=4, theta
+    200, G in 1, 8, 64; ``benchmarks/serving_throughput.py:1066-1080``):
+    ``_sur_greedy_many_hostgamma`` with ``use_kernel`` off and on and
+    ``sur_greedy_many``, each on the card and on the CPU; every plan
+    (picks, s1, s2, l*, the three xi, cost) bitwise across the planes
+    (the kernel plane's xi against the fused f64 xi rounded to f32) and
+    bitwise its CPU run; ``mc_correctness_grouped`` launched once per G
+    by the kernel plane (counts zeroed just before); the median host ms of each
+    planner per G and one profiled call of each at G=64 (wall, device ms,
+    idle share) on a ``[hostgamma]`` line with the card's name and power
+    limit; (b) ``repro_torch.analysis.run_lint`` over this checkout's
+    ``src/``: zero findings, every suppression reasoned (``[lint]``: the
+    rules, files scanned, suppressions per rule). At the end of the run
+    TF32 must still be off and the f32 matmul precision "highest"
+    (``[tf32 at the end]``).
 
 Two lines before the last is a JSON object listing every kernel with its
 launches, error, bound and times — ``ms``/``plain_ms``/``library_ms`` are
@@ -330,7 +347,8 @@ moonshot's and qwen's forwards, the SMOKE training), and
 three model kernels' ``decode_phase_launches`` phase 18's (by its
 prefills, by (a)'s prefills, and in the whole phase, the forwards the
 prefills and decodes are held against included) and ``sharded_launches``
-phase 20's sharded steps' ((a) smollm-135m bf16, (b) SMOKE f32); the
+phase 20's sharded steps' ((a) smollm-135m bf16, (b) SMOKE f32), and
+``mc_correctness_grouped``'s ``hostgamma_launches`` phase 21 (a)'s; the
 two ``mc_correctness`` rows carry ``lifted``, their phase-3 cases past
 the limits of earlier versions, timed.
 ``flash_attention`` is listed at the
@@ -4105,6 +4123,125 @@ def sharded_phase(dev, full: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the hostgamma planner baseline and the port's thriftlint
+# ---------------------------------------------------------------------------
+
+# the reference bench's raw-speed planner setting
+# (benchmarks/serving_throughput.py:1066-1080): L arms, K classes, one
+# theta for every group, numpy seed 47, CRN key 9, G drifted groups
+HOSTGAMMA = {"L": 12, "K": 4, "theta": 200, "seed": 47, "key": 9, "groups": (1, 8, 64)}
+PLANNERS = ("fused", "hostgamma", "hostgamma_kernel")
+
+
+def hostgamma_cases() -> tuple:
+    """``(b, {G: (ps, budgets, thetas)})``, drawn in the bench's order."""
+    rng = np.random.default_rng(HOSTGAMMA["seed"])
+    b = rng.uniform(0.05, 1.0, HOSTGAMMA["L"])
+    cases = {}
+    for G in HOSTGAMMA["groups"]:
+        ps = rng.uniform(0.2, 0.98, (G, HOSTGAMMA["L"]))
+        budgets = rng.uniform(0.4, 2.5, G)
+        cases[G] = (ps, budgets, np.full(G, HOSTGAMMA["theta"]))
+    return b, cases
+
+
+def planner(name: str, where, b, case):
+    """One plan of ``case`` on ``where`` by the fused plane or the hostgamma
+    baseline (``use_kernel`` on for ``hostgamma_kernel``)."""
+    from repro_torch.core import prng
+    from repro_torch.core.selection import _sur_greedy_many_hostgamma, sur_greedy_many
+
+    ps, budgets, thetas = case
+    fn = sur_greedy_many if name == "fused" else _sur_greedy_many_hostgamma
+    return fn(ps, b, budgets, HOSTGAMMA["K"], prng.key(HOSTGAMMA["key"], where), thetas,
+              use_kernel=name == "hostgamma_kernel", device=where)
+
+
+def plan_fields(r, f32_xi: bool = False) -> tuple:
+    """Everything a plan derives: picks, s1, s2, l*, the three xi (rounded
+    to f32 when held against the kernel's), cost, p*, gamma(s2)."""
+    xi = [r.xi_est, r.xi_s1, r.xi_s2]
+    if f32_xi:
+        xi = [float(np.float32(x)) for x in xi]
+    sets = [tuple(int(a) for a in x) if x is not None else None for x in (r.chosen, r.s1, r.s2)]
+    return (*sets, r.l_star, *xi, r.cost, r.p_star, r.gamma_s2)
+
+
+def hostgamma_phase(dev) -> dict:
+    """(a) ``_sur_greedy_many_hostgamma`` (``use_kernel`` off and on) and
+    ``sur_greedy_many`` on the card at G in ``HOSTGAMMA["groups"]``: every
+    plan bitwise across the planes (the kernel's xi against the fused f64
+    xi rounded to f32) and bitwise the port's CPU run of the same plane;
+    ``mc_correctness_grouped`` launched once per G by the kernel plane;
+    the median ms of each planner per G and one profiled call each at the
+    largest G."""
+    from repro_torch.kernels import ops
+
+    cpu = torch.device("cpu")
+    b, cases = hostgamma_cases()
+    ops.reset_launch_counts()
+    card = {G: {name: planner(name, dev, b, case) for name in PLANNERS}
+            for G, case in cases.items()}
+    # one final_xi launch per G by the kernel plane; the other two launch none
+    launches = ops.mc_correctness_grouped.launches
+    if launches != len(cases):
+        raise AssertionError(f"mc_correctness_grouped launched {launches} times over "
+                             f"{len(cases)} hostgamma_kernel plans, not once each")
+    for G, case in cases.items():
+        for name in PLANNERS:
+            on_cpu = planner(name, cpu, b, case)
+            for g, (c, h) in enumerate(zip(card[G][name], on_cpu)):
+                if plan_fields(c) != plan_fields(h):
+                    raise AssertionError(f"{name} G={G} group {g}: card {plan_fields(c)} "
+                                         f"!= cpu {plan_fields(h)}")
+        for g, (f, h, k) in enumerate(zip(*(card[G][n] for n in PLANNERS))):
+            if plan_fields(h) != plan_fields(f):
+                raise AssertionError(f"hostgamma G={G} group {g}: {plan_fields(h)} != fused "
+                                     f"{plan_fields(f)}")
+            if plan_fields(k) != plan_fields(f, f32_xi=k.s1 is not None):
+                raise AssertionError(f"hostgamma_kernel G={G} group {g}: {plan_fields(k)} != "
+                                     f"fused {plan_fields(f)}")
+    ms = {str(G): {name: host_ms(lambda: planner(name, dev, b, case), reps=5)
+                   for name in PLANNERS} for G, case in cases.items()}
+    for row in ms.values():
+        row["hostgamma_over_fused"] = row["hostgamma"] / row["fused"]
+    G = max(cases)
+    profiled = {name: {k: v for k, v in profiled_split(
+        lambda: planner(name, dev, b, cases[G])).items() if k != "kernels_ms"}
+        for name in PLANNERS}
+    chosen = sum(len(r.chosen) for G_ in cases for r in card[G_]["fused"])
+    return {"setting": {k: list(v) if isinstance(v, tuple) else v for k, v in HOSTGAMMA.items()},
+            "bitwise": True, "arms_chosen": chosen, "launches": launches, "ms": ms,
+            f"profiled_G{G}": profiled}
+
+
+def lint_phase() -> dict:
+    """(b) the port's thriftlint over the tree that runs: zero findings."""
+    from repro_torch.analysis import run_lint
+
+    report = run_lint(src_root=ROOT / "src", package="repro_torch")
+    if not report.ok:
+        raise AssertionError("thriftlint findings: " + "; ".join(f.format() for f in report.findings))
+    if not all(s.has_reason for s in report.suppressions):
+        raise AssertionError("a thriftlint suppression gives no reason")
+    return {"rules": list(report.rules_run), "files_scanned": report.files_scanned,
+            "findings": len(report.findings), "suppressed_by_rule": report.suppressed_by_rule(),
+            "suppression_comments": len(report.suppressions)}
+
+
+def tf32_is_off() -> dict:
+    """TF32 off for matmuls and cuDNN, f32 matmul precision "highest"; raises
+    otherwise."""
+    state = {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    if (state["matmul.allow_tf32"] is not False or state["cudnn.allow_tf32"] is not False
+            or state["float32_matmul_precision"] != "highest"):
+        raise AssertionError(f"TF32 is on at the end of the run: {state}")
+    return state
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -4375,12 +4512,24 @@ def main() -> int:
             row["sharded_launches"] = {
                 "smollm_135m_bf16": sharded["full"]["launches"][row["name"]],
                 "smoke_f32": sharded["smoke_launches"][row["name"]]}
+    t0 = time.perf_counter()
+    log("[21 the hostgamma planner baseline (use_kernel off and on) vs the fused planner, "
+        "card vs cpu; the port's thriftlint]")
+    hostgamma = hostgamma_phase(dev)
+    log(f"[hostgamma] {json.dumps({'card': smi, **hostgamma})}")
+    lint = lint_phase()
+    phases["hostgamma_lint_s"] = time.perf_counter() - t0
+    log(f"[lint] {json.dumps(lint)}")
+    for row in kernels:
+        if row["name"] == "mc_correctness_grouped":
+            row["hostgamma_launches"] = hostgamma["launches"]
     log(f"[earlier kernels] {json.dumps(earlier_kernels(kernels))}")
     floor = launch_floor_ms(dev)
     for row in kernels:
         row["launch_floor_ms"] = floor
     log(f"[phases] {json.dumps({k: round(v, 3) for k, v in phases.items()})}")
     log(f"[profiler traces] {json.dumps(TRACES)}")
+    log(f"[tf32 at the end] {json.dumps(tf32_is_off())}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -188,7 +188,8 @@ def _hist_from_ties(hit0: torch.Tensor, ties: torch.Tensor, num_classes: int):
     draws where class 0 attains the max with exactly ``j + 1`` classes tied.
     Sums of 0/1 values below 2^24: exact in any order."""
     return torch.stack(
-        [(hit0 & (ties == j + 1)).to(torch.float32).sum(-1) for j in range(num_classes)],
+        [(hit0 & (ties == j + 1)).to(torch.float32).sum(-1)  # thriftlint: ignore[f64-reduction] 0/1 counts below 2^24 are exact in f32 in any order
+         for j in range(num_classes)],
         dim=-1,
     )
 

@@ -16,10 +16,16 @@ Both planes evaluate xi through the bit-stable cores in
 statement in the reference's order; transcendental functions stay on the
 host in numpy, as in the reference.
 
+The reference's hostgamma plane is kept too, as the bench baseline:
+:func:`_sur_greedy_many_hostgamma` runs only greedy-on-xi on the device
+(``_sur_greedy_scan_core(..., full=False)``), then greedy-on-gamma and l*
+per group on the host, and scores the candidates through
+:meth:`GroupedXiEstimator.final_xi` (the ``mc_correctness_grouped`` kernel
+under ``use_kernel``). Its plans equal :func:`sur_greedy_many`'s bitwise.
+
 Differences from the reference: no ``jit`` and no donation (``donate`` has
-no counterpart), no compile buckets over groups (``group_bucket`` is gone:
-groups are not padded), and the ``full=False`` planner surface and
-``_sur_greedy_many_hostgamma`` baseline wait for a later slice.
+no counterpart), and no compile buckets over groups (``group_bucket`` is
+gone: groups are not padded).
 """
 from __future__ import annotations
 
@@ -269,6 +275,7 @@ def _sur_greedy_scan_core(
     m: torch.Tensor,           # (G, L) f64 survival factors exp(log1p(-p))
     *,
     num_classes: int,
+    full: bool = True,
 ):
     """The whole Alg. 2 planner for all G groups on the device.
 
@@ -285,7 +292,12 @@ def _sur_greedy_scan_core(
        order for l* and s2) scored by :func:`_tables_xi_core`.
 
     Groups whose affordable set empties freeze in place. The round loops
-    read one flag per round on the host (``alive.any()``). Returns
+    read one flag per round on the host (``alive.any()``).
+
+    With ``full=False`` only phase 1 runs and the return is the reference's
+    phase-1 planner surface ``(picks, npick, value (G,) f64, spent (G,) f64,
+    base_raw (G, T, K) f32, base_cnt (G, T, K) int32)``, the bench baseline
+    :func:`_sur_greedy_many_hostgamma` builds on. With ``full=True`` it is
     ``(picks (G, L) int32 in pick order (-1 pad), npick (G,), g_picks (G,
     L), g_npick (G,), l_star (G,) int32, xi_vals (G, 3) f64)``.
     """
@@ -340,6 +352,8 @@ def _sur_greedy_scan_core(
             pick[:, None].to(torch.int32), picks,
         )
         npick = npick + has.to(torch.int32)
+    if not full:
+        return picks, npick, current, spent, base_raw, base_cnt
 
     # -- phase 2: greedy-on-gamma (mirrors `_greedy_gamma`) --
     g_in_pool = torch.ones((G, L), dtype=torch.bool, device=dev)
@@ -468,6 +482,63 @@ def sur_greedy_many(
         s2 = [int(a) for a in g_picks[i, : g_npick[i]]]
         results[g] = _assemble_result(
             est.ps[i], b, float(budgets[g]), int(l_star[i]), s1, s2,
+            xi_vals[i],
+        )
+    return results
+
+
+def _sur_greedy_many_hostgamma(
+    ps: np.ndarray,
+    b: np.ndarray,
+    budgets: np.ndarray,
+    num_classes: int,
+    key: prng.Key,
+    thetas,
+    use_kernel: bool = False,
+    device="cuda",
+) -> List[SelectionResult]:
+    """The reference's hostgamma planner plane, kept as the bench baseline: the
+    device scan runs greedy-on-xi only (``full=False``), then a per-group
+    host loop runs l* and greedy-on-gamma, and ``est.final_xi`` scores the
+    three candidates in a separate evaluation (``mc_correctness_grouped``
+    under ``use_kernel``). Bitwise equal to :func:`sur_greedy_many`;
+    strictly more host work per group. The reference pads the groups to a
+    ``group_bucket`` multiple for its compile cache; here, as in
+    :func:`sur_greedy_many`, nothing is padded."""
+    ps = clip_probs(np.atleast_2d(np.asarray(ps, np.float64)))
+    G, L = ps.shape
+    b = np.asarray(b, np.float64)
+    budgets = np.broadcast_to(np.asarray(budgets, np.float64), (G,))
+    thetas = np.broadcast_to(np.asarray(thetas, np.int64), (G,))
+    K = int(num_classes)
+
+    results, live = _live_split(ps, b, budgets, K)
+    if not live:
+        return results
+
+    est = GroupedXiEstimator(
+        key, ps[live], K, thetas[live], use_kernel=use_kernel, device=device,
+    )
+    picks, npick, _, _, s1_raw, s1_cnt = _sur_greedy_scan_core(
+        *_stage_groups(est, b, budgets[live]), num_classes=K, full=False,
+    )
+    picks = picks.cpu().numpy()
+    npick = npick.cpu().numpy()
+
+    l_stars: List[int] = []
+    s1s: List[List[int]] = []
+    s2s: List[List[int]] = []
+    for i, g in enumerate(live):
+        p_g = est.ps[i]
+        afford = np.flatnonzero(b <= budgets[g] + 1e-15)
+        l_stars.append(int(afford[np.argmax(p_g[afford])]))
+        s1s.append([int(a) for a in picks[i, : npick[i]]])
+        s2s.append(_greedy_gamma(p_g, b, budgets[g])[0])
+
+    xi_vals = est.final_xi(l_stars, s1s, s2s, s1_raw, s1_cnt).cpu().numpy()  # (n, 3) f64
+    for i, g in enumerate(live):
+        results[g] = _assemble_result(
+            est.ps[i], b, float(budgets[g]), l_stars[i], s1s[i], s2s[i],
             xi_vals[i],
         )
     return results

@@ -44,6 +44,8 @@ def test_port_files_exist():
         "src/repro_torch/train_and_serve.py", "src/repro_torch/models/moe.py",
         "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/specs.py",
         "src/repro_torch/launch/roofline.py", "src/repro_torch/launch/dryrun.py",
+        "src/repro_torch/analysis/__init__.py", "src/repro_torch/analysis/walker.py",
+        "src/repro_torch/analysis/__main__.py",
     ):
         assert want in names
     for module in ("h2o_danube_1_8b", "qwen1_5_110b", "starcoder2_7b", "granite_moe_1b_a400m",

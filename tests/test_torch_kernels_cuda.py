@@ -204,6 +204,28 @@ def test_planner_on_card_matches_cpu_bitwise(cuda):
         assert (s.xi_est, s.xi_s1, s.xi_s2) == (m.xi_est, m.xi_s1, m.xi_s2)
 
 
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_hostgamma_planner_on_card_matches_cpu_bitwise(cuda, use_kernel):
+    """The hostgamma baseline plane (``full=False`` scan, host gamma, separate
+    ``final_xi``) on the card against the CPU, on the reference's
+    ``test_hostgamma_baseline_equivalence`` case; under ``use_kernel`` the
+    ``mc_correctness_grouped`` kernel scores the candidates."""
+    rng = np.random.default_rng(33)
+    G, L, K = 7, 8, 4
+    ps, b = rng.uniform(0.2, 0.98, (G, L)), rng.uniform(0.05, 1.0, L)
+    budgets, thetas = rng.uniform(0.3, 2.5, G), rng.integers(120, 700, G)
+    before = ops.mc_correctness_grouped.launches
+    on_card = tsel._sur_greedy_many_hostgamma(ps, b, budgets, K, prng.key(21, cuda), thetas,
+                                              use_kernel=use_kernel, device=cuda)
+    assert (ops.mc_correctness_grouped.launches > before) == use_kernel
+    on_cpu = tsel._sur_greedy_many_hostgamma(ps, b, budgets, K, prng.key(21, "cpu"), thetas,
+                                             use_kernel=use_kernel, device="cpu")
+    for s, m in zip(on_card, on_cpu):
+        assert np.array_equal(s.chosen, m.chosen) and np.array_equal(s.s1, m.s1)
+        assert np.array_equal(s.s2, m.s2) and s.l_star == m.l_star and s.cost == m.cost
+        assert (s.xi_est, s.xi_s1, s.xi_s2) == (m.xi_est, m.xi_s1, m.xi_s2)
+
+
 # (B, S, T, H, G, hd, window, dtype, atol): the serving path's two shapes in
 # bf16 (the tensor-core kernel), bf16 at ragged lengths, a small window,
 # every head dim and query/kv head ratios 1, 2, 3 and 16, then f32 cases
