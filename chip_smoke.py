@@ -52,7 +52,8 @@ Phases:
    cold and warm on the card, and each kernel is checked against its plain
    version and timed at the shape the main path gave it;
 7. model kernels vs plain — ``flash_attention`` in bf16 (the tensor-core
-   kernel, 2e-2 against the f32 plain version) at the two LM arms' shapes,
+   kernels, v3 at query / kv head ratios 1-3 and v4 above, 2e-2 against
+   the f32 plain version) at the two LM arms' shapes,
    at S=37 with T=45, with window 5, at hd 16, 32 and 128 and at query /
    kv head ratios 1, 3 and 16, and in f32 (the CUDA-core kernel) with and
    without windows, hd 64 and 256 (2e-5); ``rglru_scan`` at (64, 127,
@@ -62,8 +63,12 @@ Phases:
    within 3e-4, the bf16 y within 3e-4 plus one rounding to nearest
    (2^-8 |y|) of the plain version's unrounded f32 y — and in f32 at (64, 127, 8192, 16) and (2, 37,
    96, 8) with nonzero initial states (3e-4); ``flash_attention`` also at
-   head dims no kernel is built for (the wrapper zero-pads them to the
-   next template's): hd 8, 12 and 24 in bf16 (2e-2) and f32 (2e-5);
+   head dims no kernel is built for (the kernels take hd as the row
+   stride; the wrapper pads only bf16's hd 12, to 16): hd 8, 12 and 24 in
+   bf16 (2e-2) and f32 (2e-5), and in both dtypes at the other families'
+   route shapes at B=2, at hd 40, 96 and 112, ratio 9 with S < T, a window
+   that binds at ratio 4, prompts whose keys stream (S = 1100 and 1500)
+   and ratio 128;
 8. models — smollm-135m, recurrentgemma-9b and falcon-mamba-7b at full
    width in f32, cut to one pattern unit of depth (1, 3 and 1 layers) so
    the CPU side takes seconds: the same weights forward on the card and on
@@ -207,12 +212,14 @@ Phases:
     every arm's loss falls by more than 0.25);
 17. the other families — the seven architectures of the registry past
     phase 8's three: (a) ``flash_attention`` in bf16 at their LM-arm route
-    shapes (B=64, S=T=127: h2o-danube's H=32 G=8 hd=80, zero-padded to the
-    128 template, window 4096; starcoder2's 36/4, qwen's 64/8 and
-    moonshot's 16/16 at hd 128) and at danube's window where it binds (B=1,
-    S=T=4608), each within 2e-2 of the f32 plain version and timed beside
-    its bound, the plain version and SDPA (with the window as a boolean
-    mask where it binds); (b) one pattern unit of each of the seven
+    shapes (B=64, S=T=127: h2o-danube's H=32 G=8 hd=80 with window 4096,
+    no pad; starcoder2's 36/4, qwen's 64/8 and moonshot's 16/16 at hd 128)
+    and at danube's window where it binds (B=1, S=T=4608), each within 2e-2
+    of the f32 plain version, a profiled call holding only the flash
+    kernel's rows (no pad or slice copy), and timed beside its bound, the
+    plain version and SDPA (with the window as a boolean mask where it
+    binds), with the design, grid and bytes copied into shared memory that
+    the wrapper's tiling gives; (b) one pattern unit of each of the seven
     ``CONFIG``s at published width in f32, card vs CPU within 1e-3 as in
     phase 8, internvl2 and musicgen with frontend embeddings, the two MoE
     configs printing how many tokens pick the same experts on both and the
@@ -1010,9 +1017,20 @@ def mamba_path_inputs(B, S, Din, N, R, seed, dev):
 # (label, B, S, T, H, G, hd, window, dtype, atol): the two path shapes in
 # bf16, bf16 at ragged lengths, a small window, hd 16 / 32 / 128 and
 # query / kv head ratios 1, 3 and 16, then f32 with and without windows,
-# at hd 64 and 256; then head dims that are no template's (the wrapper
-# zero-pads them): hd 8, 12 and 24 in bf16 and f32, with and without a
-# window
+# at hd 64 and 256; then head dims that are no template's (the kernels
+# take hd as the row stride; bf16 pads hd 12 to 16): hd 8, 12 and 24 in
+# bf16 and f32, with and without a window; then, in both dtypes, the
+# other families' route shapes at B=2, hd 40 / 96 / 112, ratio 9 with
+# S < T, a window that binds at ratio 4, prompts whose keys stream through
+# v4's slots, and ratio 128 (tests/test_torch_kernels_cuda.py's FLASH_NEW)
+FLASH_NEW = (
+    ("danube route, B=2", 2, 127, 127, 32, 8, 80, 4096), ("starcoder2 route, B=2", 2, 127, 127, 36, 4, 128, 0),
+    ("qwen route, B=2", 2, 127, 127, 64, 8, 128, 0), ("moonshot route, B=2", 2, 127, 127, 16, 16, 128, 0),
+    ("hd 40", 2, 70, 70, 6, 2, 40, 0), ("hd 96", 2, 100, 100, 8, 2, 96, 0),
+    ("hd 112", 1, 129, 129, 4, 1, 112, 0), ("ratio 9, S < T", 2, 45, 70, 18, 2, 64, 0),
+    ("window 48 at ratio 4", 2, 200, 200, 8, 2, 64, 48), ("keys streamed", 1, 1100, 1100, 8, 2, 128, 0),
+    ("keys streamed, window 900", 1, 1500, 1500, 4, 4, 64, 900), ("ratio 128", 1, 20, 20, 128, 1, 64, 0),
+)
 FLASH_CASES = (
     ("smollm path", 64, 127, 127, 9, 3, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
     ("recurrentgemma path", 64, 127, 127, 16, 1, 256, 2048, torch.bfloat16, FLASH_BF16_ATOL),
@@ -1030,7 +1048,8 @@ FLASH_CASES = (
     ("hd 8", 2, 45, 45, 6, 2, 8, 7, torch.float32, FLASH_F32_ATOL),
     ("hd 12", 2, 45, 45, 4, 2, 12, 0, torch.float32, FLASH_F32_ATOL),
     ("hd 24", 2, 70, 70, 4, 1, 24, 7, torch.float32, FLASH_F32_ATOL),
-)
+) + tuple((*case, dtype, atol) for case in FLASH_NEW
+          for dtype, atol in ((torch.bfloat16, FLASH_BF16_ATOL), (torch.float32, FLASH_F32_ATOL)))
 RGLRU_CASES = ((64, 127, 4096), (3, 37, 200))
 MAMBA_CASES = ((64, 127, 8192, 16), (2, 37, 96, 8))
 MAMBA_PATH = (64, 127, 8192, 16, 256)   # falcon-mamba-7b: B, S, d_inner, N, dt_rank
@@ -1437,28 +1456,44 @@ def sdpa_ms(q, k, v, window: int = 0):
 
 
 # The earlier kernels' device ms at the same shapes, as PERF.md section 6
-# records them (NVIDIA H100 80GB HBM3, 700.00 W): flash v2 (f32 products on
-# the CUDA cores) per path shape, mamba_scan v1 (accurate expf, f32 in and
-# out, the casts outside the kernel), the two mc_correctness kernels
-# before their redesign (two launches, tie counts and combine; one block
-# per (group, candidate)), and belief_aggregate's first design (one warp a
-# row, a loop of broadcast loads).
-EARLIER_MS = {"flash_attention smollm path": 0.20470094999999994,
-              "flash_attention recurrentgemma path": 1.4304699499999998,
-              "mamba_scan": 0.7823275999999999,
-              "mc_correctness": 0.007682000000000028,
-              "mc_correctness_grouped": 0.06899614999999994,
-              "belief_aggregate": 0.0021225999999999997}
+# records them (NVIDIA H100 80GB HBM3, 700.00 W), keyed "kernel shape
+# [earlier design]": flash v2 (f32 products on the CUDA cores) per path
+# shape, and flash v3 (a block per query head, hd 80 padded to 128) at the
+# route shapes, the training shape and danube's binding window, where v4
+# (a block per kv head) now runs the GQA families; mamba_scan v1 (accurate
+# expf, f32 in and out, the casts outside the kernel), the two
+# mc_correctness kernels before their redesign (two launches, tie counts
+# and combine; one block per (group, candidate)), and belief_aggregate's
+# first design (one warp a row, a loop of broadcast loads).
+EARLIER_MS = {"flash_attention smollm path [v2]": 0.20470094999999994,
+              "flash_attention recurrentgemma path [v2]": 1.4304699499999998,
+              "flash_attention smollm path [v3]": 0.0149703,
+              "flash_attention recurrentgemma path [v3]": 0.0820508,
+              "flash_attention h2o-danube-1.8b path [v3]": 0.26228615,
+              "flash_attention starcoder2-7b path [v3]": 0.09743475,
+              "flash_attention qwen1.5-110b path [v3]": 0.167616,
+              "flash_attention moonshot-v1-16b-a3b path [v3]": 0.0509394,
+              "flash_attention h2o-danube-1.8b window [v3]": 0.6821789,
+              "flash_attention smollm-135m training [v3]": 0.00841235,
+              "mamba_scan [v1]": 0.7823275999999999,
+              "mc_correctness [two launches]": 0.007682000000000028,
+              "mc_correctness_grouped [two launches]": 0.06899614999999994,
+              "belief_aggregate [a warp a row]": 0.0021225999999999997}
 EARLIER_FROM = "recorded in PERF.md section 6 (not measured in this run)"
 
 
 def earlier_kernels(rows: list) -> dict:
     """Each redesigned kernel's device ms in this run beside its earlier
     version's recorded ms."""
-    now = {f"flash_attention {s['shape'].split(':')[0]}": s["ms"]
-           for r in rows if r["name"] == "flash_attention" for s in r["by_shape"]}
-    now.update({r["name"]: r["ms"] for r in rows if r["name"] in EARLIER_MS})
-    return {k: {"ms": now[k], "earlier_ms": v, "earlier_from": EARLIER_FROM}
+    now = {}
+    for r in rows:
+        now[r["name"]] = r["ms"]
+        if r["name"] == "flash_attention":
+            shapes = r["by_shape"] + r.get("families", {}).get("by_shape", [])
+            now.update({f"flash_attention {s['shape'].split(':')[0]}": s["ms"] for s in shapes})
+            if "training_shape" in r:
+                now["flash_attention smollm-135m training"] = r["training_shape"]["ms"]
+    return {k: {"ms": now.get(k.split(" [")[0]), "earlier_ms": v, "earlier_from": EARLIER_FROM}
             for k, v in EARLIER_MS.items()}
 
 
@@ -1516,6 +1551,7 @@ def time_model_kernels(launches: dict, errs: dict) -> list:
     """Each model kernel at the LM-arm route's shapes and dtypes (B=64
     queries, S=127): device ms (profiler), plain ms, bound ms and the
     library yardstick."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda", 0)
@@ -1526,10 +1562,14 @@ def time_model_kernels(launches: dict, errs: dict) -> list:
         ms, ms_source = device_ms(lambda: ops.flash_attention(*args, window=w))
         plain_ms, _ = device_ms(lambda: ref.flash_attention_ref(*args, window=w), n=5)
         b_ms, b_by = bound_ms(*flash_bound(args[0], args[1], w), BF16_OPS_PER_S)
+        tl = fa.tiling(B, S, T, H, G, hd, dtype, True, w)
         flash_shapes.append({"shape": f"{label}: B={B} S={S} H={H} G={G} hd={hd} window={w} bf16",
                              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                              "library_ms": sdpa_ms(*args), "ms_source": ms_source,
-                             "call_ms": median_ms(lambda: ops.flash_attention(*args, window=w))})
+                             "call_ms": median_ms(lambda: ops.flash_attention(*args, window=w)),
+                             "rows": flash_kernel_rows(lambda: ops.flash_attention(*args, window=w)),
+                             "design": tl.kernel, "grid": list(tl.grid),
+                             "fill_bytes": tl.fill_bytes, "device_bytes": tl.device_bytes})
     main = flash_shapes[1]                 # the heavier (recurrentgemma) shape
     rows.append({
         "name": "flash_attention", "route": "cuda",
@@ -2752,9 +2792,9 @@ POOL_ARCHS = ("granite-moe-1b-a400m", "h2o-danube-1.8b", "starcoder2-7b", "inter
 QWEN_LAYERS = 8                   # (e): qwen1.5-110b's 80 layers cut to 8 (about 13.4 B params)
 FAMILY_TRAIN_STEPS = 3            # (f)
 # (label, B, S, T, H, G, hd, window): the LM-arm route's shapes (64 queries,
-# 127 tokens) of danube (hd 80, padded to the 128 template; its window 4096
-# never reached), starcoder2 (GQA ratio 9), qwen (ratio 8) and moonshot
-# (MHA at hd 128), then danube's window where it binds (S = T = 4608)
+# 127 tokens) of danube (hd 80, GQA ratio 4; its window 4096 never
+# reached), starcoder2 (ratio 9), qwen (ratio 8) and moonshot (MHA at hd
+# 128), then danube's window where it binds (S = T = 4608)
 FLASH_FAMILY_CASES = (
     ("h2o-danube-1.8b path", 64, 127, 127, 32, 8, 80, 4096),
     ("starcoder2-7b path", 64, 127, 127, 36, 4, 128, 0),
@@ -2809,13 +2849,54 @@ def windowed_flash_check(args, got, want, window: int, label: str) -> dict:
     return out
 
 
+# aten ops that would pad, slice or copy q, k, v or out around a kernel call
+PAD_OR_COPY = ("aten::constant_pad_nd", "aten::pad", "aten::slice", "aten::copy_", "aten::cat",
+               "aten::clone", "aten::_to_copy")
+
+
+def pad_or_copy_ops(fn) -> list:
+    """The ``PAD_OR_COPY`` aten ops one call of ``fn`` runs (CPU activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages() if e.key in PAD_OR_COPY})
+
+
+def flash_kernel_rows(fn, calls: int = 20) -> dict:
+    """That one call of ``fn`` is one flash kernel and nothing around it:
+    (a) the aten ops of one call (CPU activity, which loses no events)
+    hold none that pads, slices or copies (``PAD_OR_COPY``); (b) the
+    device kernel rows of a traced run of ``calls`` calls (spin kernels
+    left out) are all a flash kernel's and no more than ``calls``. A trace
+    may lose kernel rows, never add them, and late in a run may lose them
+    all: an empty trace is taken again, up to three times, and if all three
+    are empty (b) is reported as lost and (a) stands alone."""
+    copies = pad_or_copy_ops(fn)
+    for attempt in range(3):
+        rows = [e for e in device_events(traced(fn, calls)) if "spin_kernel" not in e.key]
+        out = {"calls": calls, "kernel_rows": sum(e.count for e in rows),
+               "kernels": sorted({e.key for e in rows}), "traces": attempt + 1,
+               "pad_or_copy_ops": copies}
+        if out["kernel_rows"]:
+            break
+    if copies or not (out["kernel_rows"] <= calls
+                      and all("flash_attention_kernel" in k for k in out["kernels"])):
+        raise AssertionError(f"a flash_attention call is not one kernel: {out}")
+    return out
+
+
 def family_flash(dev) -> list:
     """(a) ``flash_attention`` in bf16 at the new families' shapes against
     the f32 plain version (within ``FLASH_BF16_ATOL``; the case whose rows
     run past its window also within ``windowed_flash_check``'s scaled
-    bound), each timed: device ms of the wrapper's call (hd 80's
-    zero-padding copies included), the plain version, the byte / operation
-    bound of the unpadded function and SDPA."""
+    bound), each a single kernel row a call (``flash_kernel_rows``) and
+    timed: device ms of the wrapper's call, the plain version, the byte /
+    operation bound and SDPA; beside them the wrapper's tiling (design,
+    grid, bytes copied into shared memory against the device bytes)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
@@ -2831,18 +2912,26 @@ def family_flash(dev) -> list:
         b_ms, b_by = bound_ms(*flash_bound(args[0], args[1], w), BF16_OPS_PER_S)
         ms, ms_source = device_ms(lambda: ops.flash_attention(*args, window=w))
         plain_ms, plain_source = device_ms(lambda: ref.flash_attention_ref(*args, window=w), n=5)
+        tl = fa.tiling(B, S, T, H, G, hd, torch.bfloat16, True, w)
         row = {"shape": shape, "max_abs_err": err, **window_check,
                "ms": ms, "ms_source": ms_source,
                "plain_ms": plain_ms, "plain_ms_source": plain_source,
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": sdpa_ms(*args, window=w),
-               "call_ms": median_ms(lambda: ops.flash_attention(*args, window=w))}
-        if fa.template_hd(hd) != hd:
-            row["padded_hd"] = fa.template_hd(hd)
-            row["padded_byte_share_wasted"] = 1.0 - hd / fa.template_hd(hd)
+               "call_ms": median_ms(lambda: ops.flash_attention(*args, window=w)),
+               "rows": flash_kernel_rows(lambda: ops.flash_attention(*args, window=w)),
+               "design": tl.kernel, "grid": list(tl.grid), "fill_bytes": tl.fill_bytes,
+               "device_bytes": tl.device_bytes, "fill_over_device": tl.fill_bytes / tl.device_bytes}
         rows.append(row)
         log(f"  flash_attention {shape}: {json.dumps({k: v for k, v in row.items() if k != 'shape'})}")
         del args
+    # the control: bf16 at hd 12 (not a multiple of 8) is the one shape the
+    # wrapper pads, and the op check must see it
+    args = flash_inputs(2, 45, 45, 4, 2, 12, torch.bfloat16, seed=69, dev=dev)
+    control = pad_or_copy_ops(lambda: ops.flash_attention(*args))
+    log(f"  flash_attention bf16 hd 12 (padded to 16, the control): pad or copy ops {control}")
+    if not control:
+        raise AssertionError("the pad check saw no pad at bf16 hd 12")
     return rows
 
 

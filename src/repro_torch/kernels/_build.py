@@ -46,7 +46,8 @@ KERNELS = {
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
     "flash_attention": (
-        "flash_attention_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        "flash_attention_launch",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P],
     ),
     "rglru_scan": ("rglru_scan_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "mamba_scan": (

@@ -229,7 +229,18 @@ def test_hostgamma_planner_on_card_matches_cpu_bitwise(cuda, use_kernel):
 # (B, S, T, H, G, hd, window, dtype, atol): the serving path's two shapes in
 # bf16 (the tensor-core kernel), bf16 at ragged lengths, a small window,
 # every head dim and query/kv head ratios 1, 2, 3 and 16, then f32 cases
-# (the CUDA-core kernel) with windows, ragged lengths and every head dim
+# (the CUDA-core kernel) with windows, ragged lengths and every head dim;
+# then, in both dtypes, the other families' route shapes at B=2 (hd 80 at
+# ratio 4, ratio 9, ratio 8, ratio 1 at hd 128), head dims 40, 96 and 112
+# that are no template's, ratio 9 with S < T, a window that binds at ratio
+# 4, prompts whose keys do not fit the bf16 kernel's slots (it streams
+# them), and ratio 128 (two M tiles a position)
+FLASH_NEW = [
+    (2, 127, 127, 32, 8, 80, 4096), (2, 127, 127, 36, 4, 128, 0), (2, 127, 127, 64, 8, 128, 0),
+    (2, 127, 127, 16, 16, 128, 0), (2, 70, 70, 6, 2, 40, 0), (2, 100, 100, 8, 2, 96, 0),
+    (1, 129, 129, 4, 1, 112, 0), (2, 45, 70, 18, 2, 64, 0), (2, 200, 200, 8, 2, 64, 48),
+    (1, 1100, 1100, 8, 2, 128, 0), (1, 1500, 1500, 4, 4, 64, 900), (1, 20, 20, 128, 1, 64, 0),
+]
 FLASH = [
     (64, 127, 127, 9, 3, 64, 0, torch.bfloat16, 2e-2),
     (64, 127, 127, 16, 1, 256, 2048, torch.bfloat16, 2e-2),
@@ -246,7 +257,8 @@ FLASH = [
     (2, 70, 70, 4, 4, 32, 0, torch.float32, 2e-5),
     (1, 129, 129, 2, 1, 128, 0, torch.float32, 2e-5),
     (2, 20, 45, 4, 2, 64, 0, torch.float32, 2e-5),
-]
+] + [(*case, dtype, atol) for case in FLASH_NEW
+     for dtype, atol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5))]
 
 
 def _normal(shape, seed, device, dtype=torch.float32, scale=1.0):
@@ -284,8 +296,8 @@ def test_flash_attention_rows_without_keys_are_zero(cuda, dtype, atol):
 
 
 def test_flash_attention_rejects_unsupported_head_dim(cuda):
-    """Any hd from 1 to 256 runs (zero-padded to a template head dim); past
-    256 the wrapper raises."""
+    """Any hd from 1 to 256 runs (the kernels take it as the row stride);
+    past 256 the wrapper raises."""
     q = torch.zeros(1, 4, 2, 257, device=cuda)
     with pytest.raises(ValueError, match="hd"):
         ops.flash_attention(q, q, q)

@@ -134,11 +134,20 @@ def test_launch_helpers_count_their_launches(monkeypatch):
 
 
 def test_flash_template_head_dims():
-    assert [flash_module.template_hd(h) for h in (1, 8, 12, 16, 17, 24, 64, 65, 200, 256)] == [
-        16, 16, 16, 16, 32, 32, 64, 128, 256, 256]
+    """The kernels are built at the template head dims and take the caller's
+    hd as the row stride: f32 at any hd, bf16 at any multiple of 8 (16-byte
+    pieces); only a bf16 hd that is not a multiple of 8 is padded, to the
+    next multiple of 8."""
+    hds = (1, 8, 12, 16, 17, 24, 40, 64, 65, 80, 96, 112, 200, 256)
+    assert [flash_module.template_hd(h) for h in hds] == [
+        16, 16, 16, 16, 32, 32, 64, 64, 128, 128, 128, 128, 256, 256]
+    assert [flash_module.kernel_hd(h, torch.float32) for h in hds] == list(hds)
+    assert [flash_module.kernel_hd(h, torch.bfloat16) for h in hds] == [
+        8, 8, 16, 16, 24, 24, 40, 64, 72, 80, 96, 112, 200, 256]
     for bad in (0, 257):
-        with pytest.raises(ValueError, match="1 <= hd <= 256"):
-            flash_module.template_hd(bad)
+        for fn in (flash_module.template_hd, lambda h: flash_module.kernel_hd(h, torch.bfloat16)):
+            with pytest.raises(ValueError, match="1 <= hd <= 256"):
+                fn(bad)
 
 
 # ---------------------------------------------------------------------------
