@@ -429,11 +429,16 @@ def device_events(prof):
     """The device-side rows of a ``torch.profiler`` trace. A CPU op's row
     carries the device time of the kernels it launched and each kernel has
     a row of its own, so summing every row counts a torch op's kernels
-    twice; the kernel rows alone count each launch once."""
+    twice; the kernel rows alone count each launch once. The port's own
+    spans (``repro_torch.trace``) also show there, as annotations spanning
+    their kernels: their rows are left out by the spans' name prefixes."""
     from torch.autograd import DeviceType
 
+    from repro_torch.trace import PREFIXES
+
     return [e for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+            and not e.key.startswith(PREFIXES)]
 
 
 # every device_ms trace of n calls: how many, and those whose kernel rows

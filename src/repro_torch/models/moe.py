@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.distributed.sharding import batch_gather, batch_ranks, batch_sum
 
 
@@ -81,58 +82,61 @@ def moe_mlp(
     """Returns (output (T, D) in x's dtype, f32 aux load-balancing loss).
     Where the batch is split over ranks, ``x`` is this rank's block and the
     capacity, the ranks within each expert and the aux are the global
-    batch's (see the module docstring)."""
+    batch's (see the module docstring). Under the profiler its four parts
+    are the marks ``arm.moe.route``, ``.dispatch``, ``.experts`` and
+    ``.combine`` (:func:`repro_torch.trace.mark`)."""
     T, D = x.shape
     E = router_w.shape[1]
     blocks, block = batch_ranks()
     C = capacity_for(T * blocks, E, k, capacity_factor)
     dev = x.device
 
-    logits = x.float() @ router_w.float()                       # (T, E) f32
-    expert_idx, combine_w = router_topk(logits, k)              # (T, k)
+    with trace.mark("arm.moe.route"):
+        logits = x.float() @ router_w.float()                   # (T, E) f32
+        expert_idx, combine_w = router_topk(logits, k)          # (T, k)
+    with trace.mark("arm.moe.dispatch"):
+        # Rank of each (token, slot) within its expert, by arrival order: the
+        # running count of one-hots, held expert-major so that the count runs
+        # along the inner axis (on the card, a count along the outer axis of a
+        # (T*k, E) one-hot runs as a serial scan per column and took most of
+        # the layer's time, PERF.md section 6).
+        flat_expert = expert_idx.reshape(-1)                    # (T*k,)
+        experts = torch.arange(E, device=dev)[:, None]
+        onehot = (experts == flat_expert[None, :]).to(torch.int32)  # (E, T*k)
+        pos_in_expert = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
+        slot = pos_in_expert.gather(0, flat_expert[None, :])[0]
+        # the lower batch blocks' pairs come first in each expert (none unsplit)
+        counts = batch_gather(onehot.sum(dim=1, dtype=torch.int32))       # (blocks, E)
+        offset = counts[:block].sum(dim=0, dtype=torch.int32)
+        keep = slot + offset[flat_expert] < C                   # capacity drop
 
-    # Rank of each (token, slot) within its expert, by arrival order: the
-    # running count of one-hots, held expert-major so that the count runs
-    # along the inner axis (on the card, a count along the outer axis of a
-    # (T*k, E) one-hot runs as a serial scan per column and took most of
-    # the layer's time, PERF.md section 6).
-    flat_expert = expert_idx.reshape(-1)                        # (T*k,)
-    experts = torch.arange(E, device=dev)[:, None]
-    onehot = (experts == flat_expert[None, :]).to(torch.int32)  # (E, T*k)
-    pos_in_expert = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
-    slot = pos_in_expert.gather(0, flat_expert[None, :])[0]
-    # the lower batch blocks' pairs come first in each expert (none unsplit)
-    counts = batch_gather(onehot.sum(dim=1, dtype=torch.int32))           # (blocks, E)
-    offset = counts[:block].sum(dim=0, dtype=torch.int32)
-    keep = slot + offset[flat_expert] < C                       # capacity drop
+        # Scatter token features into the (E, C, D) dispatch buffer; dropped
+        # pairs land on a scratch row past the buffer.
+        buf_index = torch.where(keep, flat_expert * C + slot, E * C)
+        token_of = torch.arange(T, device=dev).repeat_interleave(k)
+        dispatch = x.new_zeros((E * C + 1, D)).index_put((buf_index,), x[token_of])
+        dispatch = dispatch[: E * C].reshape(E, C, D)
+    with trace.mark("arm.moe.experts"):
+        if wu is not None:                                      # SwiGLU experts
+            hidden = F.silu(torch.bmm(dispatch, wg)) * torch.bmm(dispatch, wu)
+        else:                                                   # GELU experts (tanh, as jax.nn.gelu)
+            hidden = F.gelu(torch.bmm(dispatch, wg), approximate="tanh")
+        expert_out = torch.bmm(hidden, wd)                      # (E, C, D)
+    with trace.mark("arm.moe.combine"):
+        # Gather back and combine: the weights are cast to x's dtype before the
+        # product and the sum over the k slots comes after, as in the JAX package.
+        flat_out = expert_out.reshape(E * C, D)
+        gathered = torch.where(keep[:, None], flat_out[torch.where(keep, buf_index, 0)], 0.0)
+        w = combine_w.reshape(-1)[:, None].to(x.dtype)
+        out = (gathered * w).reshape(T, k, D).sum(dim=1)
 
-    # Scatter token features into the (E, C, D) dispatch buffer; dropped
-    # pairs land on a scratch row past the buffer.
-    buf_index = torch.where(keep, flat_expert * C + slot, E * C)
-    token_of = torch.arange(T, device=dev).repeat_interleave(k)
-    dispatch = x.new_zeros((E * C + 1, D)).index_put((buf_index,), x[token_of])
-    dispatch = dispatch[: E * C].reshape(E, C, D)
-
-    if wu is not None:                                          # SwiGLU experts
-        hidden = F.silu(torch.bmm(dispatch, wg)) * torch.bmm(dispatch, wu)
-    else:                                                       # GELU experts (tanh, as jax.nn.gelu)
-        hidden = F.gelu(torch.bmm(dispatch, wg), approximate="tanh")
-    expert_out = torch.bmm(hidden, wd)                          # (E, C, D)
-
-    # Gather back and combine: the weights are cast to x's dtype before the
-    # product and the sum over the k slots comes after, as in the JAX package.
-    flat_out = expert_out.reshape(E * C, D)
-    gathered = torch.where(keep[:, None], flat_out[torch.where(keep, buf_index, 0)], 0.0)
-    w = combine_w.reshape(-1)[:, None].to(x.dtype)
-    out = (gathered * w).reshape(T, k, D).sum(dim=1)
-
-    # Switch-style load-balance auxiliary loss.
-    probs = torch.softmax(logits, dim=-1)                       # (T, E)
-    tokens = torch.full((), float(T * blocks), dtype=torch.float32, device=dev)
-    first = F.one_hot(expert_idx[:, 0], E).float()              # the global batch's means
-    frac_tokens = batch_sum(first.sum(dim=0)) / tokens
-    frac_probs = batch_sum(probs.sum(dim=0)) / tokens
-    aux = E * (frac_tokens * frac_probs).sum()
+        # Switch-style load-balance auxiliary loss.
+        probs = torch.softmax(logits, dim=-1)                   # (T, E)
+        tokens = torch.full((), float(T * blocks), dtype=torch.float32, device=dev)
+        first = F.one_hot(expert_idx[:, 0], E).float()          # the global batch's means
+        frac_tokens = batch_sum(first.sum(dim=0)) / tokens
+        frac_probs = batch_sum(probs.sum(dim=0)) / tokens
+        aux = E * (frac_tokens * frac_probs).sum()
     return out, aux
 
 

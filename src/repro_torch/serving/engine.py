@@ -25,6 +25,7 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.distributed.fault import FAULT_ERROR, FAULT_TIMEOUT
 from repro_torch.models import LM
 
@@ -51,16 +52,24 @@ class LMArm:
         cfg = self.model.cfg
         self.flops_per_query = cfg.flops_per_token(self.tokens_per_query) * self.tokens_per_query / 3.0
         self.cost = float(self.flops_per_query * USD_PER_FLOP)
+        # span names, built once (repro_torch.trace)
+        self.launch_span = f"arm.{self.name}.launch"
+        self.wait_span = f"arm.{self.name}.wait"
 
     def classify_batch(self, tokens: np.ndarray) -> np.ndarray:
-        """tokens (B, S) — the answer position is the final token slot."""
+        """tokens (B, S) — the answer position is the final token slot.
+        Spans: ``arm.<name>.launch`` (upload, forward, argmax) and
+        ``arm.<name>.wait`` (the copy to the host)."""
         dev = self.model.device
-        x = torch.as_tensor(np.asarray(tokens)[:, :-1], device=dev).long()
-        cls = torch.as_tensor(np.asarray(self.class_token_ids), device=dev).long()
-        with torch.inference_mode():
-            last = self.model(x)[:, -1]                          # predicts final slot
-            pred = last[:, cls].argmax(dim=-1)
-        return pred.cpu().numpy().astype(np.int64)
+        tokens = np.asarray(tokens)
+        with trace.span(self.launch_span, rows=tokens.shape[0]):
+            x = torch.as_tensor(tokens[:, :-1], device=dev).long()
+            cls = torch.as_tensor(np.asarray(self.class_token_ids), device=dev).long()
+            with torch.inference_mode():
+                last = self.model(x)[:, -1]                      # predicts final slot
+                pred = last[:, cls].argmax(dim=-1)
+        with trace.span(self.wait_span):
+            return pred.cpu().numpy().astype(np.int64)
 
     def latency_s(self, batch: int) -> float:
         return 1e-12 * self.flops_per_query * batch            # simulated

@@ -88,6 +88,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.distributed.fault import FAULT_ERROR, FAULT_TIMEOUT, _mix64
 from repro_torch.distributed.sharding import replica_devices
 
@@ -281,14 +282,16 @@ class _WorkerScheduler(BatchScheduler):
         super()._launch(payloads, emb, budgets, arrival, part_sinks, part_id,
                         part_pos, ids, tenants, reserved, mode)
 
-    def _adopt(self, view, g: _StagedGroup) -> None:
+    def _adopt(self, view, g: _StagedGroup, trace_group: int) -> None:
         """Take ownership of one slice of a fused dispatch (the deferred
-        half of :meth:`_launch`)."""
+        half of :meth:`_launch`); ``trace_group`` numbers the dispatch's
+        spans."""
         self._stats["spec_" + view.kind] += 1
         self._stats["batches"] += 1
         self._inflight.append(_Group(
             view, g.arrival, g.part_sinks, g.part_id, g.part_pos,
             ids=g.ids, tenants=g.tenants, reserved=g.reserved,
+            trace_group=trace_group,
         ))
         self._stats["inflight_peak"] = max(
             self._stats["inflight_peak"], len(self._inflight)
@@ -663,24 +666,26 @@ class ReplicaSet:
                 torch.cuda.stream(w.stream)
                 if w.stream is not None else contextlib.nullcontext()
             )
+            group = trace.new_group()
             with ctx:
                 pending = w.router.begin_route(
                     g.payloads, g.emb, g.budgets, mode=g.mode,
                     speculation_threshold=self.speculation_threshold,
                     fault_row_offset=lo,
                 )
-            launched.append((w, g, pending))
+            launched.append((w, g, pending, group))
             lo += g.n
         self.overlapped_dispatches += len(entries)
         self.overlapped_rows += lo
-        for w, g, pending in launched:
-            w.sched._adopt(pending, g)
+        for w, g, pending, group in launched:
+            w.sched._adopt(pending, g, group)
 
     def _launch_fused(self, entries: List[tuple]) -> None:
         w0: ReplicaWorker = entries[0][0]
         payloads = BatchScheduler._cat_payloads([g.payloads for _, g in entries])
         emb = np.concatenate([g.emb for _, g in entries])
         budgets = np.concatenate([g.budgets for _, g in entries])
+        group = trace.new_group()
         pending = w0.router.begin_route(
             payloads, emb, budgets, mode=entries[0][1].mode,
             speculation_threshold=self.speculation_threshold,
@@ -691,7 +696,7 @@ class ReplicaSet:
         lo = 0
         for w, g in entries:
             hi = lo + g.n
-            w.sched._adopt(_RouteView(pending, lo, hi, L), g)
+            w.sched._adopt(_RouteView(pending, lo, hi, L), g, group)
             lo = hi
 
     def pump(self) -> int:

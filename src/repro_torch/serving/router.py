@@ -48,6 +48,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.belief import tie_break_argmax
 from repro_torch.core.estimation import SuccessProbEstimator
 from repro_torch.core.selection import STOP_MARGIN, ThriftLLM, adaptive_invoke
@@ -268,6 +269,8 @@ class PendingRoute:
         # estimator plan-version the group's plans were gathered at (a served
         # group can be attributed to the estimate generation that planned it)
         self.plan_version = state.pop("plan_version", 0)
+        # (query, wave) cells handed to the arms, speculative ones included
+        self.cells_invoked = 0
         self._result: Optional[RouteResult] = result
         if result is not None:
             return
@@ -298,59 +301,65 @@ class PendingRoute:
     # jit kind: speculative gather + asynchronous device launch
     # ------------------------------------------------------------------
     def _dispatch_jit(self):
+        """Spans ``router.gather`` (the fault grid and every arm call) and
+        ``router.wave`` (the uploads and the wave program's launch)."""
         router, T, B = self.router, self.T, self.B
         sched_T, engine = self.sched_T, router.engine
-        codes, failed = engine.fault_grid(sched_T, row_offset=self.fault_row_offset)
-        self._orig_sched_T = sched_T
-        self._codes, self._failed = codes, failed
-        # one heterogeneous-arm engine call for every scheduled cell; the
-        # device program decides which cells the adaptive loop uses
-        if engine.pooled:
-            resp_T = engine.invoke_grid(sched_T, self.payloads)
-        else:
+        with trace.span("router.gather"):
+            codes, failed = engine.fault_grid(sched_T, row_offset=self.fault_row_offset)
+            self._orig_sched_T = sched_T
+            self._codes, self._failed = codes, failed
             mask = sched_T >= 0
             if failed is not None:
-                mask &= ~failed          # a failed arm yields no response
-            _, rows_b = np.nonzero(mask)
-            resp_T = np.full((T, B), -1, np.int64)
-            if rows_b.size:
-                resp_T[mask] = engine.invoke_rows(sched_T[mask], self.payloads, rows_b)
-        if codes is not None:
-            resp_T = np.where(failed, -1, resp_T)
-            degr = codes == FAULT_DEGRADE
-            if degr.any():
-                # silent degradation: the arm answers (and bills), but with a
-                # hash-drawn class — response-independent, so the reference
-                # plane corrupts the same cells to the same classes
-                resp_T = np.where(
-                    degr,
-                    engine.fault_policy.corrupt_grid(sched_T, row_offset=self.fault_row_offset),
-                    resp_T,
-                )
-        self.resp_T = resp_T
+                mask &= ~failed              # a failed arm yields no response
+            self.cells_invoked = int(np.count_nonzero(mask))
+            # one heterogeneous-arm engine call for every scheduled cell; the
+            # device program decides which cells the adaptive loop uses
+            if engine.pooled:
+                resp_T = engine.invoke_grid(sched_T, self.payloads)
+            else:
+                _, rows_b = np.nonzero(mask)
+                resp_T = np.full((T, B), -1, np.int64)
+                if rows_b.size:
+                    resp_T[mask] = engine.invoke_rows(sched_T[mask], self.payloads, rows_b)
+            if codes is not None:
+                resp_T = np.where(failed, -1, resp_T)
+                degr = codes == FAULT_DEGRADE
+                if degr.any():
+                    # silent degradation: the arm answers (and bills), but with a
+                    # hash-drawn class — response-independent, so the reference
+                    # plane corrupts the same cells to the same classes
+                    resp_T = np.where(
+                        degr,
+                        engine.fault_policy.corrupt_grid(
+                            sched_T, row_offset=self.fault_row_offset),
+                        resp_T,
+                    )
+            self.resp_T = resp_T
 
-        dev = router.device
-        put = lambda x, dtype: torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dtype)
-        # in-wave failover gather: identity on fault-free traffic
-        if failed is not None and router.failover:
-            src, valid, self._rank, self._navail = failover_gather(sched_T, failed)
-            src_d = put(src, torch.int64)
-        else:
-            src = np.broadcast_to(np.arange(T)[:, None], (T, B))
-            valid = sched_T >= 0
-            self._rank = self._navail = None
-            src_d = torch.arange(T, device=dev)[:, None].expand(T, B)
-        self._src, self._valid = src, valid
-        self._dev = _wave_scan_core(
-            put(sched_T, torch.int32), put(resp_T, torch.int32),
-            put(self.w_T, torch.float64), put(self.res_T, torch.float64),
-            src_d, put(valid, torch.bool), put(self.empty, torch.float64),
-            self.stop_margin,
-            num_classes=router.num_classes, use_kernel=router.use_kernel,
-        )
-        self._done = torch.cuda.Event() if dev.type == "cuda" else None
-        if self._done is not None:
-            self._done.record(torch.cuda.current_stream(dev))
+        with trace.span("router.wave"):
+            dev = router.device
+            put = lambda x, dtype: torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dtype)
+            # in-wave failover gather: identity on fault-free traffic
+            if failed is not None and router.failover:
+                src, valid, self._rank, self._navail = failover_gather(sched_T, failed)
+                src_d = put(src, torch.int64)
+            else:
+                src = np.broadcast_to(np.arange(T)[:, None], (T, B))
+                valid = sched_T >= 0
+                self._rank = self._navail = None
+                src_d = torch.arange(T, device=dev)[:, None].expand(T, B)
+            self._src, self._valid = src, valid
+            self._dev = _wave_scan_core(
+                put(sched_T, torch.int32), put(resp_T, torch.int32),
+                put(self.w_T, torch.float64), put(self.res_T, torch.float64),
+                src_d, put(valid, torch.bool), put(self.empty, torch.float64),
+                self.stop_margin,
+                num_classes=router.num_classes, use_kernel=router.use_kernel,
+            )
+            self._done = torch.cuda.Event() if dev.type == "cuda" else None
+            if self._done is not None:
+                self._done.record(torch.cuda.current_stream(dev))
 
     def ready(self) -> bool:
         """Non-blocking: has the launched device work finished? Host-driven
@@ -536,6 +545,7 @@ class PendingRoute:
             live = cur[~self._failed[t][cur]]
         if live.size:
             self.waves += 1
+            self.cells_invoked += live.size
             arms_t = sched_t[live]
             votes = self.router.engine.invoke_rows(arms_t, self.payloads, live)
             if self._degrade_T is not None:
@@ -575,12 +585,17 @@ class PendingRoute:
     # ------------------------------------------------------------------
     def result(self) -> RouteResult:
         """Block until the route completes and return its RouteResult
-        (cached — safe to call repeatedly)."""
+        (cached — safe to call repeatedly). Span ``router.finalize``:
+        ``cells_invoked`` and ``cells_used``, the cells the route's stop
+        kept."""
         if self._result is None:
-            self._result = (
-                self._finalize_jit() if self.kind == "jit"
-                else self._finalize_reference()
-            )
+            with trace.span("router.finalize") as counts:
+                self._result = (
+                    self._finalize_jit() if self.kind == "jit"
+                    else self._finalize_reference()
+                )
+                counts["cells_invoked"] = self.cells_invoked
+                counts["cells_used"] = int(np.count_nonzero(self._result.invoked))
         return self._result
 
 
@@ -732,7 +747,8 @@ class ThriftRouter:
         """Start routing a batch and return a :class:`PendingRoute` handle:
         planning, the data-plane choice and (for the ``"jit"`` kind) the
         speculative gather and device launch happen here; ``result()``
-        finalizes.
+        finalizes. Span ``router.plan``: from the start until the handle is
+        built.
 
         Args:
           mode: ``"jit"`` forces the device wave loop, ``"reference"`` the
@@ -747,26 +763,28 @@ class ThriftRouter:
         budgets = np.broadcast_to(np.asarray(budget, np.float64), (B,))
         if B == 0:
             return PendingRoute(self, "empty", result=self._empty_result(budgets))
-        self.plans.refresh()
-        cluster_ids, sched_T, w_T, res_T, wc_T, empty, planned = self._plan_batch(
-            embeddings, budgets
-        )
-        spec_cost = self.speculation_cost(sched_T, wc_T)
-        if mode == "auto":
-            kind = "reference" if (not self.jit_waves or spec_cost > speculation_threshold) else "jit"
-        elif mode in ("jit", "reference"):
-            kind = mode
-        else:
-            raise ValueError(f"unknown route mode {mode!r}")
-        pending = PendingRoute(
-            self, kind,
-            budgets=budgets, cluster_ids=cluster_ids, sched_T=sched_T,
-            w_T=w_T, res_T=res_T, wc_T=wc_T, empty=empty, planned=planned,
-            payloads=self.engine.prepare_payloads(queries),
-            stop_margin=float(stop_margin), rng=rng, spec_cost=spec_cost,
-            plan_version=getattr(self.estimator, "plan_version", 0),
-            fault_row_offset=fault_row_offset,
-        )
+        with trace.span("router.plan", rows=B):
+            self.plans.refresh()
+            cluster_ids, sched_T, w_T, res_T, wc_T, empty, planned = self._plan_batch(
+                embeddings, budgets
+            )
+            spec_cost = self.speculation_cost(sched_T, wc_T)
+            if mode == "auto":
+                kind = ("reference" if (not self.jit_waves or spec_cost > speculation_threshold)
+                        else "jit")
+            elif mode in ("jit", "reference"):
+                kind = mode
+            else:
+                raise ValueError(f"unknown route mode {mode!r}")
+            pending = PendingRoute(
+                self, kind,
+                budgets=budgets, cluster_ids=cluster_ids, sched_T=sched_T,
+                w_T=w_T, res_T=res_T, wc_T=wc_T, empty=empty, planned=planned,
+                payloads=self.engine.prepare_payloads(queries),
+                stop_margin=float(stop_margin), rng=rng, spec_cost=spec_cost,
+                plan_version=getattr(self.estimator, "plan_version", 0),
+                fault_row_offset=fault_row_offset,
+            )
         if kind == "jit":
             pending._dispatch_jit()
         return pending

@@ -65,6 +65,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.distributed.fault import (
     FAULT_DEGRADE,
     FAULT_ERROR,
@@ -588,10 +589,11 @@ class _Group:
     """One dispatched budget group riding in flight."""
 
     __slots__ = ("pending", "arrival", "part_sinks", "part_id", "part_pos",
-                 "ids", "n", "requests", "tenants", "reserved")
+                 "ids", "n", "requests", "tenants", "reserved", "trace_group")
 
     def __init__(self, pending, arrival, part_sinks, part_id, part_pos,
-                 ids=None, requests=None, tenants=None, reserved=None):
+                 ids=None, requests=None, tenants=None, reserved=None,
+                 trace_group=-1):
         self.pending = pending        # router.PendingRoute
         self.arrival = arrival        # (n,)
         self.part_sinks = part_sinks  # list of futures contributing rows
@@ -602,6 +604,7 @@ class _Group:
         self.requests = requests
         self.tenants = tenants        # (n,) ledger principals; None = no ledger
         self.reserved = reserved      # (n,) admission reservations to settle
+        self.trace_group = trace_group  # the group's number on its spans
 
 
 class BatchScheduler:
@@ -827,10 +830,11 @@ class BatchScheduler:
         plans = getattr(self.router, "plans", None)
         if plans is None:
             return
-        emb = np.concatenate([s.emb for s in self._queue])
-        budgets = np.concatenate([s.budgets for s in self._queue])
-        plans.prefetch_for(emb, budgets)
-        self._sync_plan_stats()
+        with trace.span("scheduler.prefetch"):
+            emb = np.concatenate([s.emb for s in self._queue])
+            budgets = np.concatenate([s.budgets for s in self._queue])
+            plans.prefetch_for(emb, budgets)
+            self._sync_plan_stats()
 
     # ------------------------------------------------------------------
     # Admission
@@ -1083,60 +1087,65 @@ class BatchScheduler:
         admission boundary — so every query of the batch routes against one
         consistent estimator version and a fold can never land mid-wave.
         With a cost ledger bound, this is also where tenant limits are
-        enforced (reserve / downgrade / reject)."""
-        self.apply_feedback()
-        take = self._take_batch()
-        if not take:
-            return
-        (payloads, emb, budgets, arrival, part_sinks, part_id, part_pos,
-         ids, tenants) = self._stack_segments(take)
-        self._stats["flushes"] += 1
-        reserved = None
-        if self.ledger is not None:
-            admitted, budgets, reserved = self._admit_ledger(
-                budgets, tenants, arrival, part_sinks, part_id, part_pos,
-                ids=ids,
-            )
-            if admitted.size < budgets.shape[0]:
-                if admitted.size == 0:
-                    return
-                payloads = self._index_payloads(payloads, admitted)
-                emb, budgets = emb[admitted], budgets[admitted]
-                arrival, part_pos = arrival[admitted], part_pos[admitted]
-                ids, tenants = ids[admitted], tenants[admitted]
-                reserved = reserved[admitted]
-                if part_id is not None:
-                    part_id = part_id[admitted]
-        self._stats["requests"] += budgets.shape[0]
-        mode = self._route_mode()
-        if (budgets == budgets[0]).all():
-            group_rows = [None]                    # whole batch, no split
-        else:
-            # one group per budget, first-occurrence order, FIFO inside
-            _, first = np.unique(budgets, return_index=True)
-            group_rows = [
-                np.flatnonzero(budgets == budgets[i]) for i in np.sort(first)
-            ]
-        for rows in group_rows:
-            if rows is None:
-                g_payloads, g_emb, g_budgets = payloads, emb, budgets
-                g_arrival, g_id, g_pos, g_ids = arrival, part_id, part_pos, ids
-                g_tenants = tenants if self.ledger is not None else None
-                g_reserved = reserved
+        enforced (reserve / downgrade / reject). Span ``scheduler.dispatch``:
+        ``rows`` admitted and ``wait_s``, the sum of their waits from
+        arrival to admission."""
+        with trace.span("scheduler.dispatch", rows=0, wait_s=0.0) as counts:
+            self.apply_feedback()
+            take = self._take_batch()
+            if not take:
+                return
+            (payloads, emb, budgets, arrival, part_sinks, part_id, part_pos,
+             ids, tenants) = self._stack_segments(take)
+            self._stats["flushes"] += 1
+            reserved = None
+            if self.ledger is not None:
+                admitted, budgets, reserved = self._admit_ledger(
+                    budgets, tenants, arrival, part_sinks, part_id, part_pos,
+                    ids=ids,
+                )
+                if admitted.size < budgets.shape[0]:
+                    if admitted.size == 0:
+                        return
+                    payloads = self._index_payloads(payloads, admitted)
+                    emb, budgets = emb[admitted], budgets[admitted]
+                    arrival, part_pos = arrival[admitted], part_pos[admitted]
+                    ids, tenants = ids[admitted], tenants[admitted]
+                    reserved = reserved[admitted]
+                    if part_id is not None:
+                        part_id = part_id[admitted]
+            self._stats["requests"] += budgets.shape[0]
+            counts["rows"] = n = budgets.shape[0]
+            counts["wait_s"] = float(n * time.monotonic() - arrival.sum())
+            mode = self._route_mode()
+            if (budgets == budgets[0]).all():
+                group_rows = [None]                    # whole batch, no split
             else:
-                g_payloads = self._index_payloads(payloads, rows)
-                g_emb, g_budgets = emb[rows], budgets[rows]
-                g_arrival, g_pos, g_ids = arrival[rows], part_pos[rows], ids[rows]
-                g_id = part_id[rows] if part_id is not None else None
-                g_tenants = tenants[rows] if self.ledger is not None else None
-                g_reserved = reserved[rows] if reserved is not None else None
-            self._launch(
-                g_payloads, g_emb, g_budgets, g_arrival, part_sinks, g_id,
-                g_pos, g_ids, g_tenants, g_reserved, mode,
+                # one group per budget, first-occurrence order, FIFO inside
+                _, first = np.unique(budgets, return_index=True)
+                group_rows = [
+                    np.flatnonzero(budgets == budgets[i]) for i in np.sort(first)
+                ]
+            for rows in group_rows:
+                if rows is None:
+                    g_payloads, g_emb, g_budgets = payloads, emb, budgets
+                    g_arrival, g_id, g_pos, g_ids = arrival, part_id, part_pos, ids
+                    g_tenants = tenants if self.ledger is not None else None
+                    g_reserved = reserved
+                else:
+                    g_payloads = self._index_payloads(payloads, rows)
+                    g_emb, g_budgets = emb[rows], budgets[rows]
+                    g_arrival, g_pos, g_ids = arrival[rows], part_pos[rows], ids[rows]
+                    g_id = part_id[rows] if part_id is not None else None
+                    g_tenants = tenants[rows] if self.ledger is not None else None
+                    g_reserved = reserved[rows] if reserved is not None else None
+                self._launch(
+                    g_payloads, g_emb, g_budgets, g_arrival, part_sinks, g_id,
+                    g_pos, g_ids, g_tenants, g_reserved, mode,
+                )
+            self._stats["inflight_peak"] = max(
+                self._stats["inflight_peak"], len(self._inflight)
             )
-        self._stats["inflight_peak"] = max(
-            self._stats["inflight_peak"], len(self._inflight)
-        )
 
     def _launch(self, payloads, emb, budgets, arrival, part_sinks, part_id,
                 part_pos, ids, tenants, reserved, mode):
@@ -1144,6 +1153,7 @@ class BatchScheduler:
         seam: a replica worker overrides this to *stage* the group so a
         :class:`~repro_torch.serving.replica.ReplicaSet` can fuse same-budget
         groups from several replicas into one wave program."""
+        group = trace.new_group()
         pending = self.router.begin_route(
             payloads, emb, budgets, mode=mode,
             speculation_threshold=self.speculation_threshold,
@@ -1152,7 +1162,8 @@ class BatchScheduler:
         self._stats["batches"] += 1
         self._inflight.append(
             _Group(pending, arrival, part_sinks, part_id, part_pos,
-                   ids=ids, tenants=tenants, reserved=reserved)
+                   ids=ids, tenants=tenants, reserved=reserved,
+                   trace_group=group)
         )
 
     def _resolve_rows(self, group: _Group, rows: np.ndarray, predictions,
@@ -1183,41 +1194,44 @@ class BatchScheduler:
     def _retire(self, group: _Group) -> int:
         """Complete one in-flight group: step reference-mode groups wave by
         wave (futures fire at each query's stop wave), block on jit-mode
-        device results, then account latencies and plan stats."""
-        pending = group.pending
-        if pending.kind == "reference" and pending.rng is None:
-            all_rows = np.arange(group.n)
-            resolved = np.zeros(group.n, bool)
-            while not pending.exhausted:
-                wave = pending._t
-                rows, preds = pending.step()
-                if rows.size:
+        device results, then account latencies and plan stats. Span
+        ``scheduler.retire``: ``rows`` completed, under the group's number."""
+        trace.set_group(group.trace_group)
+        with trace.span("scheduler.retire", rows=group.n):
+            pending = group.pending
+            if pending.kind == "reference" and pending.rng is None:
+                all_rows = np.arange(group.n)
+                resolved = np.zeros(group.n, bool)
+                while not pending.exhausted:
+                    wave = pending._t
+                    rows, preds = pending.step()
+                    if rows.size:
+                        self._resolve_rows(
+                            group, rows, preds, pending.costs[rows],
+                            pending.planned[rows], pending.cluster_ids[rows],
+                            pending.budgets[rows],
+                            np.full(rows.shape[0], min(wave, pending.T), np.int64),
+                            "reference", time.monotonic(),
+                        )
+                        resolved[rows] = True
+                res = pending.result()
+                left = all_rows[~resolved]
+                if left.size:   # defensive: every row should resolve via steps
                     self._resolve_rows(
-                        group, rows, preds, pending.costs[rows],
-                        pending.planned[rows], pending.cluster_ids[rows],
-                        pending.budgets[rows],
-                        np.full(rows.shape[0], min(wave, pending.T), np.int64),
+                        group, left, res.predictions[left], res.costs[left],
+                        res.planned_costs[left], res.clusters[left],
+                        res.budgets[left], res.stop_waves[left],
                         "reference", time.monotonic(),
                     )
-                    resolved[rows] = True
-            res = pending.result()
-            left = all_rows[~resolved]
-            if left.size:   # defensive: every row should resolve via steps
+            else:
+                res = pending.result()
                 self._resolve_rows(
-                    group, left, res.predictions[left], res.costs[left],
-                    res.planned_costs[left], res.clusters[left],
-                    res.budgets[left], res.stop_waves[left],
-                    "reference", time.monotonic(),
+                    group, np.arange(group.n), res.predictions, res.costs,
+                    res.planned_costs, res.clusters, res.budgets,
+                    res.stop_waves, pending.kind, time.monotonic(),
                 )
-        else:
-            res = pending.result()
-            self._resolve_rows(
-                group, np.arange(group.n), res.predictions, res.costs,
-                res.planned_costs, res.clusters, res.budgets,
-                res.stop_waves, pending.kind, time.monotonic(),
-            )
-        self._account(res, group)
-        return group.n
+            self._account(res, group)
+            return group.n
 
     def _account(self, res, group: Optional[_Group] = None):
         lat = [
@@ -1426,6 +1440,7 @@ class BatchScheduler:
                 reserved = reserved[admitted]
                 if part_id is not None:
                     part_id = part_id[admitted]
+        trace.new_group()
         pending = self.router.begin_route(
             payloads, emb, budgets, mode=self._route_mode(),
             speculation_threshold=self.speculation_threshold,
