@@ -16,7 +16,7 @@ and ``torch.backends.cudnn.allow_tf32``): f32 results are compared below.
 Phases:
 
 1. report — the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build — compile every CUDA kernel of ``src/repro_torch/csrc`` (six, one
+2. build — compile every CUDA kernel of ``src/repro_torch/csrc`` (seven, one
    ``nvcc`` each, all started together; timed as set-up), then count the
    tensor-core instructions (``HGMMA``/``HMMA``) in the ``flash_attention``
    library's SASS (``cuobjdump -sass``): the phase fails at 0;
@@ -68,7 +68,10 @@ Phases:
    bf16 (2e-2) and f32 (2e-5), and in both dtypes at the other families'
    route shapes at B=2, at hd 40, 96 and 112, ratio 9 with S < T, a window
    that binds at ratio 4, prompts whose keys stream (S = 1100 and 1500)
-   and ratio 128;
+   and ratio 128; ``causal_conv1d`` bitwise at falcon-mamba's path case
+   (B=128, x the x-half of a (B, S, 2 x 8192) bf16 split, SiLU), at
+   recurrentgemma's width without the SiLU, one decode step from a state,
+   S < K-1, f32, ragged channels, and every bf16 value through its SiLU;
 8. models — smollm-135m, recurrentgemma-9b and falcon-mamba-7b at full
    width in f32, cut to one pattern unit of depth (1, 3 and 1 layers) so
    the CPU side takes seconds: the same weights forward on the card and on
@@ -92,7 +95,10 @@ Phases:
 10. timing — each model kernel at the LM-arm route's shapes and dtypes
     (``mamba_scan`` with bf16 x, strided bf16 B, C, f32 dt and no initial
     state, bound
-    by its exponentials at the card's maximum SM clock);
+    by its exponentials at the card's maximum SM clock; ``causal_conv1d``
+    at the benchmark's group of 128 and the route's 64, with the SiLU, x the
+    split's x-half, bound by its bytes, beside the same pass without the
+    SiLU and the plain version's 21 launches);
 11. GreedyLLM on MC xi — GreedyLLM (Alg. 1) scoring candidates with
     ``McXiEstimator(use_kernel=True)`` on the card, held to the same run on
     the CPU (equal picks and final xi): (a) the Fig. 11 setting of
@@ -345,13 +351,13 @@ three router kernels' ``wide_pool_launches`` count phase 13, the two
 router kernels' ``scheduler_launches`` phase 14's ``use_kernel`` stream
 and their ``replica_launches`` phase 15 (b)'s card stream,
 and ``lm_scheduler_launches`` the LM arms' scheduler run in phase 9, and
-the three model kernels' ``train_launches`` phase 16 (b) (SMOKE, f32) and
+the four model kernels' ``train_launches`` phase 16 (b) (SMOKE, f32) and
 (c) (smollm-135m, bf16), and the ``flash_attention`` row's
 ``training_shape`` its phase-16 times and its ``families`` phase 17's
 shapes, timed, and launches (the pool's route and scheduler runs,
 moonshot's and qwen's forwards, the SMOKE training), and
 ``belief_aggregate``'s ``families_pool_launches`` phase 17 (c)'s, the
-three model kernels' ``decode_phase_launches`` phase 18's (by its
+four model kernels' ``decode_phase_launches`` phase 18's (by its
 prefills, by (a)'s prefills, and in the whole phase, the forwards the
 prefills and decodes are held against included) and ``sharded_launches``
 phase 20's sharded steps' ((a) smollm-135m bf16, (b) SMOKE f32), and
@@ -526,8 +532,8 @@ def device_ms(fn, n: int = 20, tries: int = 3, launches: int = 0):
 
 def profiled_split(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its host-clock wall ms,
-    the device ms of each kernel it launched (kernel rows only), and the
-    device's idle share of the wall time."""
+    the device ms of each kernel it launched (kernel rows only), the number
+    of kernel rows, and the device's idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -537,10 +543,11 @@ def profiled_split(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {e.key: e.self_device_time_total / 1e3 for e in device_events(prof)}
+    events = device_events(prof)
+    kernels = {e.key: e.self_device_time_total / 1e3 for e in events}
     busy = sum(kernels.values())
     return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
-            "kernels_ms": kernels}
+            "kernels_ms": kernels, "launches": sum(e.count for e in events)}
 
 
 # ---------------------------------------------------------------------------
@@ -1058,6 +1065,34 @@ FLASH_CASES = (
 RGLRU_CASES = ((64, 127, 4096), (3, 37, 200))
 MAMBA_CASES = ((64, 127, 8192, 16), (2, 37, 96, 8))
 MAMBA_PATH = (64, 127, 8192, 16, 256)   # falcon-mamba-7b: B, S, d_inner, N, dt_rank
+# (label, B, S, D, K, dtype, x the x-half of a (B, S, 2D) split, state, silu):
+# falcon-mamba's mixer at the benchmark's group of 128 and the route's 64,
+# recurrentgemma's width without the SiLU, a decode step from a state,
+# S < K-1, f32, channels that do not fill 16-byte pieces
+# (tests/test_torch_kernels_cuda.py's CONV)
+CONV_CASES = (("falcon-mamba path, group of 128", 128, 127, 8192, 4, torch.bfloat16, True, False, True),
+              ("falcon-mamba path, route of 64", 64, 127, 8192, 4, torch.bfloat16, True, False, True),
+              ("recurrentgemma width", 64, 127, 4096, 4, torch.bfloat16, False, False, False),
+              ("decode step", 64, 1, 8192, 4, torch.bfloat16, True, True, True),
+              ("S < K-1", 3, 2, 256, 4, torch.bfloat16, True, True, True),
+              ("f32", 2, 37, 200, 4, torch.float32, True, True, True),
+              ("ragged channels", 2, 70, 100, 2, torch.bfloat16, True, True, True))
+
+
+def conv_inputs(B, S, D, K, dtype, split, with_state, seed, dev):
+    """x (the x-half of a (B, S, 2D) tensor where ``split``), w, b and the
+    state (or None) of one ``causal_conv1d`` call."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn((B, S, 2 * D if split else D), gen, dev).to(dtype)[..., :D]
+    return (x, _randn((D, K), gen, dev, 0.5).to(dtype), _randn((D,), gen, dev, 0.1).to(dtype),
+            _randn((B, K - 1, D), gen, dev).to(dtype) if with_state else None)
+
+
+def conv_bound(x) -> float:
+    """The least ms of one call: x read once and y written once in x's
+    dtype, at the card's memory rate (its ~10 f32 operations an element
+    are far below the f32 rate)."""
+    return 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
 
 
 def output_error(name: str, got, want, atol: float, label: str) -> float:
@@ -1078,7 +1113,7 @@ def output_error(name: str, got, want, atol: float, label: str) -> float:
 def check_model_kernels(dev) -> dict:
     from repro_torch.kernels import ops, ref
 
-    errs = {"flash_attention": 0.0, "rglru_scan": 0.0, "mamba_scan": 0.0}
+    errs = {"flash_attention": 0.0, "rglru_scan": 0.0, "mamba_scan": 0.0, "causal_conv1d": 0.0}
     for i, (label, B, S, T, H, G, hd, w, dtype, atol) in enumerate(FLASH_CASES):
         args = flash_inputs(B, S, T, H, G, hd, dtype, seed=10 + i, dev=dev)
         plain = ref.flash_attention_ref(*(a.float() for a in args), window=w)   # f32 plain
@@ -1112,6 +1147,24 @@ def check_model_kernels(dev) -> dict:
         err = output_error("mamba_scan", ops.mamba_scan(*args), ref.mamba_scan_ref(*args),
                            MAMBA_ATOL, f"f32 B={B} S={S} Din={Din} N={N} with h0")
         errs["mamba_scan"] = max(errs["mamba_scan"], err)
+    for i, (label, B, S, D, K, dtype, split, with_state, silu) in enumerate(CONV_CASES):
+        x, w, b, state = conv_inputs(B, S, D, K, dtype, split, with_state, seed=50 + i, dev=dev)
+        got = ops.causal_conv1d(x, w, b, state, silu=silu)
+        want = ref.causal_conv1d_ref(x, w, b, state, silu=silu)
+        torch.cuda.synchronize()
+        log(f"  causal_conv1d {label} B={B} S={S} D={D} K={K} {str(dtype)[6:]} silu={silu}: "
+            f"bitwise {torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"causal_conv1d differs from its plain version at {label}")
+    # one tap of weight 1, zero bias: every bf16 value through the SiLU
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=dev).to(torch.int16)
+    x = x.view(torch.bfloat16).reshape(2, 4, 8192)
+    w, b = torch.ones(8192, 1, device=dev), torch.zeros(8192, device=dev)
+    same = torch.equal(ops.causal_conv1d(x, w, b, silu=True).view(torch.int16),
+                       ref.causal_conv1d_ref(x, w, b, silu=True).view(torch.int16))
+    log(f"  causal_conv1d SiLU of every bf16 value: bitwise {same}")
+    if not same:
+        raise AssertionError("causal_conv1d's SiLU differs from the plain version's on some bf16 value")
     return errs
 
 
@@ -1273,7 +1326,8 @@ def lm_route_phase(dev, archs=ARCHS, seed: int = 100) -> dict:
     torch.cuda.synchronize()
     launches = {
         "flash_attention": ops.flash_attention.launches, "rglru_scan": ops.rglru_scan.launches,
-        "mamba_scan": ops.mamba_scan.launches, "belief_aggregate": ops.belief_aggregate.launches,
+        "mamba_scan": ops.mamba_scan.launches, "causal_conv1d": ops.causal_conv1d.launches,
+        "belief_aggregate": ops.belief_aggregate.launches,
         "mc_correctness_grouped": ops.mc_correctness_grouped.launches,
     }
     main_s = time.perf_counter() - t0
@@ -1348,7 +1402,7 @@ def lm_scheduler_check(router, work, results, archs) -> dict:
     sched.drain()
     torch.cuda.synchronize()
     launches = {name: getattr(ops, name).launches for name in
-                ("flash_attention", "rglru_scan", "mamba_scan", "belief_aggregate")}
+                (*MODEL_KERNELS, "belief_aggregate")}
     for i, ((q, e, b), blk) in enumerate(zip(work, blocks)):
         want = np.zeros((3, q.shape[0]))
         for rows in admission_groups(b, q.shape[0]):
@@ -1411,7 +1465,7 @@ def lm_fault_check(router, arms, batch) -> None:
         f"{res.arm_query_counts.tolist()}")
 
 
-MODEL_KERNELS = ("flash_attention", "rglru_scan", "mamba_scan")
+MODEL_KERNELS = ("flash_attention", "rglru_scan", "mamba_scan", "causal_conv1d")
 GEMM_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "cublas")
 
 
@@ -1419,8 +1473,9 @@ def forward_breakdown(arm, tokens) -> dict:
     """Where one 64-query forward of ``arm`` spends its time: host-clock wall
     ms of a ``classify_batch`` (which ends in copying its answers to the
     host) under ``torch.profiler``, the device time of its kernels split
-    into the model kernels, cuBLAS matmuls and everything else, and the
-    device's idle share of the wall time."""
+    into the model kernels, cuBLAS matmuls and everything else, the
+    kernel launches (rows of the trace) and the device's idle share of the
+    wall time."""
     prof = profiled_split(lambda: arm.classify_batch(tokens))
     parts = dict.fromkeys([*MODEL_KERNELS, "matmul", "other"], 0.0)
     for key, ms in prof["kernels_ms"].items():
@@ -1428,7 +1483,7 @@ def forward_breakdown(arm, tokens) -> dict:
         if cat is None:
             cat = "matmul" if any(m in key.lower() for m in GEMM_MARKS) else "other"
         parts[cat] += ms
-    return {**{k: prof[k] for k in ("wall_ms", "device_ms", "idle_share")},
+    return {**{k: prof[k] for k in ("wall_ms", "device_ms", "idle_share", "launches")},
             **{f"{k}_ms": v for k, v in parts.items()}}
 
 
@@ -1612,6 +1667,28 @@ def time_model_kernels(launches: dict, errs: dict) -> list:
         "call_ms": median_ms(lambda: ops.mamba_scan(*args)),
         "f32_ms": device_ms(lambda: ops.mamba_scan(*f32_args))[0],
         "f32_shape": f"B={B} S={S} Din={Din} N={N} f32, contiguous B/C, with h0",
+    })
+    shapes = []
+    for label, B, S, D, K, dtype, split, with_state, silu in CONV_CASES[:2]:
+        x, w, b, _ = conv_inputs(B, S, D, K, dtype, split, with_state, seed=44, dev=dev)
+        ms, ms_source = device_ms(lambda: ops.causal_conv1d(x, w, b, silu=True), launches=1)
+        plain_ms, plain_source = device_ms(lambda: ref.causal_conv1d_ref(x, w, b, silu=True), n=5)
+        shapes.append({
+            "shape": f"{label}: B={B} S={S} D={D} K={K} bf16, x the x-half of (B, S, 2D), SiLU",
+            "ms": ms, "ms_source": ms_source, "plain_ms": plain_ms,
+            "plain_ms_source": plain_source, "bound_ms": conv_bound(x), "bound_by": "bytes",
+            "no_silu_ms": device_ms(lambda: ops.causal_conv1d(x, w, b), launches=1)[0],
+            "call_ms": median_ms(lambda: ops.causal_conv1d(x, w, b, silu=True)),
+            "plain_launches": kernel_rows(traced(lambda: ref.causal_conv1d_ref(x, w, b, silu=True),
+                                                 1))[0]})
+    main = shapes[0]
+    rows.append({
+        "name": "causal_conv1d", "route": "cuda", "source": "src/repro_torch/csrc/causal_conv1d.cu",
+        "replaces": "none: the JAX package's conv is jnp (src/repro/models/ssm.py:23)",
+        "launches": launches["causal_conv1d"], "max_abs_err": errs["causal_conv1d"],
+        "bitwise": errs["causal_conv1d"] == 0.0,
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "no_silu_ms", "call_ms")},
+        "library_ms": None, "shape": main["shape"], "by_shape": shapes,
     })
     return rows
 
@@ -2486,12 +2563,14 @@ def smoke_train_phase(dev, archs=ARCHS, steps: int = SMOKE_TRAIN[2], seed: int =
 
 def needed_kernels(archs) -> set:
     """The model kernels the layers of ``archs`` run: flash for attention
-    and MoE blocks, rglru_scan for recurrent ones, mamba_scan for SSM ones."""
+    and MoE blocks, rglru_scan for recurrent ones, mamba_scan for SSM ones,
+    causal_conv1d for both of the last two."""
     from repro_torch.configs import get_smoke_config
 
     kinds = {t for a in archs for t in get_smoke_config(a).block_pattern}
     return ({"flash_attention"} if kinds & {"attn", "moe"} else set()) | (
-        {"rglru_scan"} if "rec" in kinds else set()) | ({"mamba_scan"} if "ssm" in kinds else set())
+        {"rglru_scan"} if "rec" in kinds else set()) | ({"mamba_scan"} if "ssm" in kinds else set()) | (
+        {"causal_conv1d"} if kinds & {"rec", "ssm"} else set())
 
 
 def range_kernels(evt) -> list:
@@ -4531,7 +4610,7 @@ def main() -> int:
     for row in kernels:
         if row["name"] in ("belief_aggregate", "mc_correctness_grouped"):
             row["scheduler_launches"] = sched["kernel"]["launches"][row["name"]]
-        if row["name"] in ("flash_attention", "rglru_scan", "mamba_scan", "belief_aggregate"):
+        if row["name"] in (*MODEL_KERNELS, "belief_aggregate"):
             row["lm_scheduler_launches"] = lm["scheduler_launches"][row["name"]]
         if row["name"] in ("mc_correctness", "mc_correctness_grouped"):
             row["lifted"] = [r for r in lifted if r["name"] == row["name"]]

@@ -54,6 +54,10 @@ KERNELS = {
         "mamba_scan_launch",
         [_P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
+    "causal_conv1d": (
+        "causal_conv1d_launch",
+        [_P, _L, _L, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
 }
 
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}

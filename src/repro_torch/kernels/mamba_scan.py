@@ -16,7 +16,10 @@ in registers, and dt in f32 (the block adds an f32 bias before its
 softplus, so either model hands over an f32 dt, in the JAX package too);
 y rounded to x's dtype once, as ``y.to(x.dtype)`` would;
 ``h0=None`` is a zero state that is neither allocated nor read. So the
-SSM block runs no cast or zero-fill pass around the scan.
+wrapper adds no cast or zero-fill pass of its own around the scan. The
+block's other elementwise work runs outside it: the conv, its bias and
+SiLU in one ``causal_conv1d`` launch before it, dt's f32 bias and softplus,
+and the SiLU(z) gate after it.
 
 What bounds it on an H100: exponentials. At the serving path's shape
 (B=64, S=127, Din=8192, N=16 for falcon-mamba-7b; x, B, C, y bf16, dt

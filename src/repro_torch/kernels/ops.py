@@ -6,8 +6,9 @@ hand-written CUDA kernel, building it on first use, or raises: there is no
 fallback from the card to the plain version. ``<wrapper>.launches`` counts
 the kernel launches, and nothing else increments it.
 
-The three model kernels (``flash_attention``, ``rglru_scan``,
-``mamba_scan``) run on CUDA tensors as a :class:`KernelFunction`, so
+The four model kernels (``flash_attention``, ``rglru_scan``,
+``mamba_scan``, ``causal_conv1d``) run on CUDA tensors as a
+:class:`KernelFunction`, so
 training differentiates through them: the forward launches the kernel and
 the backward differentiates the plain version, recomputed on the saved
 inputs. The JAX package has no backward kernel either (its
@@ -19,9 +20,11 @@ On the ``meta`` device (shapes and dtypes only: the launch tools' specs
 and dry run) the two scans return empty outputs of the shapes and dtypes
 the kernel gives, ``h_last`` included: nothing is computed there, so
 nothing is launched or counted, and the plain scans' loops over time are
-not run either. Attention on meta never reaches ``flash_attention``
-(``models/attention.py`` sends it only CUDA tensors; meta takes the plain
-blocked attention). The other kernels take no meta tensor.
+not run either. ``causal_conv1d`` on meta runs its plain version, a few
+elementwise ops that compute nothing there. Attention on meta never
+reaches ``flash_attention`` (``models/attention.py`` sends it only CUDA
+tensors; meta takes the plain blocked attention). The other kernels take
+no meta tensor.
 
 No wrapper takes a ``DTensor`` (a sharded tensor of
 ``torch.distributed.tensor``): its ``data_ptr`` is not its shard's memory,
@@ -38,6 +41,7 @@ import torch
 from repro_torch.distributed.sharding import is_distributed
 
 from . import belief_aggregate as _belief_aggregate
+from . import causal_conv1d as _causal_conv1d
 from . import flash_attention as _flash_attention
 from . import mamba_scan as _mamba_scan
 from . import mc_correctness as _mc_correctness
@@ -234,6 +238,30 @@ def mamba_scan(x, dt, A, Bmat, Cmat, Dskip, h0=None):
 mamba_scan.launches = 0
 
 
+def _launch_conv(x, w, b, state, silu):
+    out = _causal_conv1d.launch(x, w, b, state, silu=silu)
+    causal_conv1d.launches += 1
+    return out
+
+
+def causal_conv1d(x, w, b, state=None, silu: bool = False):
+    """Depthwise causal conv along time with its bias, and the SiLU where
+    ``silu``: y (B, S, D) in x's dtype from x (B, S, D), w (D, K), b (D,)
+    and ``state`` (B, K-1, D), the K-1 inputs before x (None: zeros). On
+    the card x goes in as it is (unit stride over channels, any batch and
+    timestep strides: the block's split view) and one launch computes it;
+    the returned conv state is the caller's (``models/ssm.py``)."""
+    _refuse_distributed(x, w, b, state)
+    if x.device.type == "meta" or _device_kind(x) == "cpu":
+        return ref.causal_conv1d_ref(x, w, b, state, silu=silu)
+    return KernelFunction.apply(_launch_conv, ref.causal_conv1d_ref, {"silu": silu},
+                                x, w.contiguous(), b.contiguous(),
+                                None if state is None else state.contiguous())
+
+
+causal_conv1d.launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch counter to 0."""
     belief_aggregate.launches = 0
@@ -242,3 +270,4 @@ def reset_launch_counts() -> None:
     flash_attention.launches = 0
     rglru_scan.launches = 0
     mamba_scan.launches = 0
+    causal_conv1d.launches = 0

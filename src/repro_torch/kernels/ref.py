@@ -7,6 +7,7 @@ The CPU tests hold these to the JAX package, the kernel wrappers in
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.belief import aggregate_log_beliefs_batch
 from repro_torch.core.mc import _masked_xi_core, xi_from_responses
@@ -71,3 +72,21 @@ def mamba_scan_ref(x, dt, A, Bmat, Cmat, Dskip, h0=None):
         h = torch.exp(dt_t[..., None] * A32) * h + (dt_t * x_t)[..., None] * B32[:, t, None, :]
         ys.append((h * C32[:, t, None, :]).sum(-1) + D32 * x_t)
     return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def causal_conv1d_ref(x, w, b, state=None, silu=False):
+    """Depthwise causal conv along time, unrolled as the JAX package writes
+    it: y (B, S, D) in x's dtype from x (B, S, D), w (D, K), b (D,) and the
+    K-1 inputs before x, ``state`` (B, K-1, D) (None: zeros). Each tap a
+    shifted multiply-add in f32 onto 0, then the bias, rounded to x's dtype
+    once; with ``silu``, ``F.silu`` of that (in f32, rounded again)."""
+    B, S, D = x.shape
+    K = w.shape[1]
+    if state is None:
+        state = torch.zeros((B, K - 1, D), dtype=x.dtype, device=x.device)
+    xt = torch.cat([state, x], dim=1)                       # (B, S+K-1, D)
+    y = 0
+    for i in range(K):
+        y = y + xt[:, i:i + S, :].float() * w[:, i][None, None, :].float()
+    y = (y + b[None, None, :]).to(x.dtype)
+    return F.silu(y) if silu else y

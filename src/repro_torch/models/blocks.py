@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import active_rules
+from repro_torch.kernels import ops
 
 from .attention import attention, direct_attention
 from .config import ModelConfig
@@ -42,7 +43,7 @@ from .mlp import mlp_apply, rmsnorm
 from .moe import local_experts, moe_mlp, moe_mlp_ep
 from .rglru import rglru_decode_step, rglru_gates, rglru_scan
 from .rotary import apply_rope
-from .ssm import causal_conv1d, selective_scan, ssm_decode_step
+from .ssm import causal_conv1d, conv_state as ssm_conv_state, selective_scan, ssm_decode_step
 
 Cache = Dict[str, torch.Tensor]
 
@@ -218,8 +219,8 @@ def _ssm_inner(params, xn: torch.Tensor, cfg: ModelConfig, conv_state: Optional[
     Din, N, R = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
     S = xn.shape[1]
     xpart, z = (xn @ params["w_in"]).split(Din, dim=-1)          # (B,S,Din) each
-    xconv, new_conv = causal_conv1d(xpart, params["conv_w"], params["conv_b"], conv_state)
-    xconv = F.silu(xconv)
+    xconv = ops.causal_conv1d(xpart, params["conv_w"], params["conv_b"], conv_state, silu=True)
+    new_conv = ssm_conv_state(xpart, params["conv_w"].shape[1], conv_state)
     dt_r, Bmat, Cmat = (xconv @ params["w_x"]).split([R, N, N], dim=-1)
     dt = F.softplus(dt_r @ params["w_dt"] + params["b_dt"])
     A = -torch.exp(params["a_log"].float())                      # (Din,N), negative

@@ -25,21 +25,26 @@ def causal_conv1d(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv along time. x (B, S, D), w (D, K), b (D,).
 
-    Returns (y (B, S, D), new_state (B, K-1, D)). An unrolled shifted
-    multiply-add in f32, as the JAX package writes it (not ``F.conv1d``,
-    which would go through cuDNN on the card).
+    Returns (y (B, S, D), new_state (B, K-1, D)): y from
+    :func:`repro_torch.kernels.ops.causal_conv1d` — one launch of the
+    hand-written kernel on the card, on the CPU the unrolled shifted
+    multiply-add in f32 as the JAX package writes it (not ``F.conv1d``) —
+    and the new state from :func:`conv_state`.
     """
+    return ops.causal_conv1d(x, w, b, state), conv_state(x, w.shape[1], state)
+
+
+def conv_state(x: torch.Tensor, K: int, state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The last K-1 inputs of ``cat([state, x])`` along time (B, K-1, D),
+    ``state`` None meaning zeros: the view ``x[:, S-K+1:]`` where there is
+    no state and S >= K-1, else a small ``cat`` (a decode step, a prefill
+    shorter than K-1)."""
     B, S, D = x.shape
-    K = w.shape[1]
+    if state is None and S >= K - 1:
+        return x[:, S - K + 1:]
     if state is None:
         state = torch.zeros((B, K - 1, D), dtype=x.dtype, device=x.device)
-    xt = torch.cat([state, x], dim=1)                       # (B, S+K-1, D)
-    y = 0
-    for i in range(K):
-        y = y + xt[:, i:i + S, :].float() * w[:, i][None, None, :].float()
-    y = y + b[None, None, :]
-    new_state = xt[:, S:, :] if K > 1 else state
-    return y.to(x.dtype), new_state
+    return torch.cat([state, x], dim=1)[:, S:]
 
 
 def selective_scan(

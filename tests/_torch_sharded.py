@@ -85,6 +85,7 @@ def _kernel_guard(mesh) -> dict:
         "flash_attention": lambda: ops.flash_attention(q, q, q),
         "rglru_scan": lambda: ops.rglru_scan(a, a, d(1, 8)),
         "mamba_scan": lambda: ops.mamba_scan(x, x, d(8, 2), d(1, 4, 2), d(1, 4, 2), d(8)),
+        "causal_conv1d": lambda: ops.causal_conv1d(x, d(8, 4), d(8)),
         "belief_aggregate": lambda: ops.belief_aggregate(resp, d(3), d(2), 4),
         "KernelFunction": lambda: ops.KernelFunction.apply(lambda t: t, lambda t: t, {}, q),
     }

@@ -30,6 +30,7 @@ def test_port_files_exist():
         "src/repro_torch/models/model.py", "src/repro_torch/models/blocks.py",
         "src/repro_torch/configs/__init__.py", "src/repro_torch/kernels/flash_attention.py",
         "src/repro_torch/kernels/rglru_scan.py", "src/repro_torch/kernels/mamba_scan.py",
+        "src/repro_torch/kernels/causal_conv1d.py", "src/repro_torch/csrc/causal_conv1d.cu",
         "src/repro_torch/kernels/mc_correctness.py", "src/repro_torch/csrc/mc_correctness.cu",
         "src/repro_torch/core/cascade.py", "src/repro_torch/core/belief.py",
         "src/repro_torch/budget_sweep.py", "src/repro_torch/distributed/fault.py",

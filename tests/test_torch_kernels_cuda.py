@@ -395,6 +395,97 @@ def test_mamba_scan_bf16_makes_no_f32_copy(cuda):
     assert grown < args[0].numel() * 4, (grown, args[0].numel() * 4)
 
 
+# (label, B, S, D, K, dtype, x as the x-half of a (B, S, 2D) split, state,
+# silu): falcon-mamba's serving shape and mixer (bf16, split view, SiLU),
+# recurrentgemma's width without the SiLU, one decode step from a state,
+# S < K-1 without and with a state, f32 with and without a state, and
+# channel counts whose rows do not fill 16-byte pieces (plain loads)
+CONV = [("falcon-mamba path", 128, 127, 8192, 4, torch.bfloat16, True, False, True),
+        ("recurrentgemma width", 64, 127, 4096, 4, torch.bfloat16, False, False, False),
+        ("decode step", 64, 1, 8192, 4, torch.bfloat16, True, True, True),
+        ("S < K-1", 3, 2, 256, 4, torch.bfloat16, True, False, True),
+        ("S < K-1, state", 3, 2, 256, 4, torch.bfloat16, True, True, False),
+        ("f32", 2, 37, 200, 4, torch.float32, True, True, True),
+        ("f32, no state", 4, 63, 128, 3, torch.float32, False, False, False),
+        ("ragged channels", 2, 70, 100, 2, torch.bfloat16, True, True, True),
+        ("K=1", 2, 9, 64, 1, torch.bfloat16, True, False, True)]
+
+
+def _conv_inputs(B, S, D, K, dtype, split, with_state, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *shape, scale=1.0: (scale * torch.randn(shape, generator=gen, device=device)
+                                      ).to(dtype)
+    x = rand(B, S, 2 * D)[..., :D] if split else rand(B, S, D)
+    return x, rand(D, K, scale=0.5), rand(D, scale=0.1), rand(B, K - 1, D) if with_state else None
+
+
+@pytest.mark.parametrize("case", CONV, ids=[c[0] for c in CONV])
+def test_causal_conv1d_matches_plain_bitwise(cuda, case):
+    """One launch, bit for bit the plain version on the same card: f32
+    products and sums in tap order, the bias, one rounding, then the SiLU
+    as PyTorch computes it and one more rounding."""
+    _, B, S, D, K, dtype, split, with_state, silu = case
+    x, w, b, state = _conv_inputs(B, S, D, K, dtype, split, with_state, cuda)
+    assert x.is_contiguous() != split
+    before = ops.causal_conv1d.launches
+    y = ops.causal_conv1d(x, w, b, state, silu=silu)
+    want = ref.causal_conv1d_ref(x, w, b, state, silu=silu)
+    torch.cuda.synchronize()
+    assert ops.causal_conv1d.launches == before + 1
+    assert y.dtype == dtype and y.shape == (B, S, D) and y.is_contiguous()
+    assert torch.equal(y, want), float((y.float() - want.float()).abs().max())
+
+
+def test_causal_conv1d_silu_of_every_bf16_value(cuda):
+    """With one tap of weight 1 and a zero bias the conv passes x through
+    (-0 becomes +0), so one call puts every bf16 value through the SiLU:
+    the kernel's bits equal the plain version's for all 65536, infinities
+    and NaNs included."""
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=cuda).to(torch.int16)
+    x = bits.view(torch.bfloat16).reshape(2, 4, 8192)
+    w, b = torch.ones(8192, 1, device=cuda), torch.zeros(8192, device=cuda)
+    got = ops.causal_conv1d(x, w, b, silu=True)
+    want = ref.causal_conv1d_ref(x, w, b, silu=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_causal_conv1d_gradient_is_the_plain_versions(cuda):
+    """On the card the op is a ``KernelFunction``: the input gradients are
+    those of the plain version's own autograd, bit for bit."""
+    args = [t.requires_grad_() for t in _conv_inputs(2, 37, 64, 4, torch.float32, False, True,
+                                                    cuda, seed=1)]
+    g = torch.randn(2, 37, 64, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    got = torch.autograd.grad(ops.causal_conv1d(*args, silu=True), args, g)
+    want = torch.autograd.grad(ref.causal_conv1d_ref(*args, silu=True), args, g)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+def test_causal_conv1d_refuses_bad_inputs(cuda):
+    x, w, b, _ = _conv_inputs(2, 9, 64, 4, torch.bfloat16, False, False, cuda)
+    with pytest.raises(ValueError, match="unit stride over channels"):
+        ops.causal_conv1d(x.transpose(1, 2).contiguous().transpose(1, 2), w, b)
+    with pytest.raises(ValueError, match="w: need"):
+        ops.causal_conv1d(x, w.cpu(), b)
+    with pytest.raises(ValueError, match="1 <= K <= 4"):
+        ops.causal_conv1d(x, torch.zeros(64, 5, device=cuda), b)
+
+
+def test_causal_conv1d_bf16_makes_no_f32_copy(cuda):
+    """The Mamba mixer's call allocates y (bf16) and nothing of x's size in
+    f32: no widened copy of x, no f32 sum, no ``cat``."""
+    x, w, b, _ = _conv_inputs(8, 127, 4096, 4, torch.bfloat16, True, False, cuda)
+    ops.causal_conv1d(x, w, b, silu=True)             # builds the kernel first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    y = ops.causal_conv1d(x, w, b, silu=True)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(cuda) - base
+    assert grown < x.numel() * 4, (grown, x.numel() * 4)
+
+
 @pytest.mark.parametrize("arch", ["smollm-135m", "recurrentgemma-9b", "falcon-mamba-7b"])
 def test_smoke_lm_on_card_matches_cpu(cuda, arch):
     """The ``SMOKE`` models in f32, kernels on the card against the plain
@@ -409,10 +500,12 @@ def test_smoke_lm_on_card_matches_cpu(cuda, arch):
     ops.reset_launch_counts()
     with torch.inference_mode():
         got = model(tokens).cpu()
-        launched = (ops.flash_attention.launches, ops.rglru_scan.launches, ops.mamba_scan.launches)
+        launched = (ops.flash_attention.launches, ops.rglru_scan.launches, ops.mamba_scan.launches,
+                    ops.causal_conv1d.launches)
         want = model.to("cpu")(tokens.cpu())
     kinds = set(model.cfg.layer_types)
-    assert launched == (sum(t == "attn" for t in model.cfg.layer_types),
-                        sum(t == "rec" for t in model.cfg.layer_types),
-                        sum(t == "ssm" for t in model.cfg.layer_types)), (kinds, launched)
+    count = lambda *types: sum(t in types for t in model.cfg.layer_types)
+    # one conv launch per SSM layer (the mixer's, SiLU inside) and per recurrent one
+    assert launched == (count("attn"), count("rec"), count("ssm"),
+                        count("rec", "ssm")), (kinds, launched)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -145,7 +145,8 @@ def test_cpu_weights_unchanged(arch):
 
 def test_model_kernels_on_meta():
     meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
-    before = (ops.flash_attention.launches, ops.rglru_scan.launches, ops.mamba_scan.launches)
+    before = (ops.flash_attention.launches, ops.rglru_scan.launches, ops.mamba_scan.launches,
+              ops.causal_conv1d.launches)
     h, h_last = ops.rglru_scan(meta(2, 7, 6), meta(2, 7, 6), meta(2, 6))
     assert (h.shape, h_last.shape) == ((2, 7, 6), (2, 6))
     assert h.dtype == h_last.dtype == torch.float32 and h.is_meta and h_last.is_meta
@@ -153,8 +154,12 @@ def test_model_kernels_on_meta():
     y, s = ops.mamba_scan(meta(2, 7, 6, dtype=bf), meta(2, 7, 6), meta(6, 3),
                           meta(2, 7, 3, dtype=bf), meta(2, 7, 3, dtype=bf), meta(6))
     assert (y.shape, y.dtype, s.shape, s.dtype) == ((2, 7, 6), bf, (2, 6, 3), torch.float32)
+    # the conv's plain version on meta: a few elementwise ops that compute nothing
+    c = ops.causal_conv1d(meta(2, 7, 12, dtype=bf)[..., :6], meta(6, 4, dtype=bf),
+                          meta(6, dtype=bf), silu=True)
+    assert (c.shape, c.dtype, c.is_meta) == ((2, 7, 6), bf, True)
     assert before == (ops.flash_attention.launches, ops.rglru_scan.launches,
-                      ops.mamba_scan.launches)
+                      ops.mamba_scan.launches, ops.causal_conv1d.launches)
     with pytest.raises(ValueError, match="not meta"):
         ops.belief_aggregate(meta(2, 3, dtype=torch.int32), meta(3), 0.0, 4)
     with pytest.raises(ValueError, match="not meta"):

@@ -131,10 +131,12 @@ def test_wrappers_count_no_cpu_launches():
     ops.rglru_scan(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8), torch.zeros(1, 8))
     ops.mamba_scan(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8), torch.zeros(8, 2),
                    torch.zeros(1, 4, 2), torch.zeros(1, 4, 2), torch.zeros(8), torch.zeros(1, 8, 2))
-    assert (ops.flash_attention.launches, ops.rglru_scan.launches, ops.mamba_scan.launches) == (0, 0, 0)
+    ops.causal_conv1d(torch.zeros(1, 4, 8), torch.zeros(8, 4), torch.zeros(8), silu=True)
+    assert (ops.flash_attention.launches, ops.rglru_scan.launches, ops.mamba_scan.launches,
+            ops.causal_conv1d.launches) == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("module", ["flash_attention", "rglru_scan", "mamba_scan"])
+@pytest.mark.parametrize("module", ["flash_attention", "rglru_scan", "mamba_scan", "causal_conv1d"])
 def test_kernel_modules_import_without_nvcc(monkeypatch, module):
     """Importing a kernel module builds nothing and needs no CUDA compiler:
     the build happens at the first launch on a CUDA tensor."""

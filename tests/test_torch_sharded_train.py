@@ -233,7 +233,7 @@ def test_every_rank_reports_the_same_metrics(world):
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "rglru_scan", "mamba_scan",
-                                  "belief_aggregate", "KernelFunction"])
+                                  "causal_conv1d", "belief_aggregate", "KernelFunction"])
 def test_kernel_wrappers_refuse_a_dtensor(world, name):
     for r in world.ranks:
         assert r["guard"][name] is not None and "DTensor" in r["guard"][name]

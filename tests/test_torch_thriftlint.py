@@ -208,8 +208,8 @@ class TestRealTree:
         # the callers of every kernel module's launch*
         callers = {s.enclosing.qualname for s in project.launch_sites}
         assert callers == {"belief_aggregate", "mc_correctness", "mc_correctness_grouped",
-                           "_launch_flash", "_launch_rglru", "_launch_mamba"}
-        assert len(project.launches) == 6
+                           "_launch_flash", "_launch_rglru", "_launch_mamba", "_launch_conv"}
+        assert len(project.launches) == 7
         assert {"_sur_greedy_scan_core.<locals>._pick", "_wave_scan_core",
                 "_hist_from_ties", "fold_in"} <= names
 

@@ -124,12 +124,15 @@ def test_launch_helpers_count_their_launches(monkeypatch):
     monkeypatch.setattr(ops._flash_attention, "launch", ref.flash_attention_ref)
     monkeypatch.setattr(ops._rglru_scan, "launch", ref.rglru_scan_ref)
     monkeypatch.setattr(ops._mamba_scan, "launch", ref.mamba_scan_ref)
+    monkeypatch.setattr(ops._causal_conv1d, "launch", ref.causal_conv1d_ref)
     ops.reset_launch_counts()
     ops._launch_flash(*_flash_args(1, 4, 2, 1, 8, torch.float32, "cpu"), causal=True, window=0)
     ops._launch_rglru(*_rglru_args(1, 3, 4, "cpu"))
     x, dt, A, proj, D = _mamba_args(1, 3, 4, 2, "cpu")
     ops._launch_mamba(x, dt, A, proj[..., 3:5], proj[..., 5:], D, None)
-    assert (ops.flash_attention.launches, ops.rglru_scan.launches, ops.mamba_scan.launches) == (1, 1, 1)
+    ops._launch_conv(x, torch.zeros(4, 4), torch.zeros(4), None, True)
+    assert (ops.flash_attention.launches, ops.rglru_scan.launches, ops.mamba_scan.launches,
+            ops.causal_conv1d.launches) == (1, 1, 1, 1)
     ops.reset_launch_counts()
 
 
