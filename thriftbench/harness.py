@@ -15,6 +15,7 @@ scheduler's ``stats`` and the kernels' launch counters.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import time
 from contextlib import nullcontext
@@ -28,9 +29,17 @@ from thriftbench.metrics import arith
 from thriftbench.reference import check as refcheck
 from thriftbench.spec import Cell
 from thriftbench.traffic import generate as gen
-from thriftbench.weights import draw_arm
+from thriftbench.weights import derived, draw_arm
+
+# keys of an arm's model that are the benchmark's and not the program's;
+# any other key is handed to ``ModelConfig``, which refuses one it lacks
+OWN_KEYS = ("layer_types",)
 
 CHUNK = 2048                   # queries a bank draws at a time
+# kernel entry points no block file launches, and their launch counters
+OTHER_KERNELS = {"rglru_scan_kernel": ("rglru_scan",),
+                 "belief_aggregate_kernel": ("belief_aggregate",),
+                 "mc_tie_hist": ("mc_correctness", "mc_correctness_grouped")}
 
 
 def span(trace: bool, name: str):
@@ -176,11 +185,18 @@ def build(cell: Cell, seed: int, device: torch.device, trace: bool, log) -> Dict
     calls: List = []
     routes: List = []
     cls_ids = gen.make_queries(pool, mix, seed, 1, "warmup")["class_token_ids"]
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    own = set(OWN_KEYS) - fields
     arms = []
     for i, arm in enumerate(pool["arms"]):
-        model = dict(arm["model"], block_pattern=tuple(arm["model"]["block_pattern"]))
+        model = {k: v for k, v in arm["model"].items() if k not in own}
+        cfg = ModelConfig(**dict(model, block_pattern=tuple(model["block_pattern"])))
+        want = derived(arm["model"])["layer_types"]
+        if list(cfg.layer_types) != want:
+            raise ValueError(f"{arm['arch']}: the program builds layers {list(cfg.layer_types)}, "
+                             f"the benchmark draws and checks {want}")
         layout = draw_arm(arm["model"], seed, i, device)
-        lm = LM(ModelConfig(**model), device=device, params=layout)
+        lm = LM(cfg, device=device, params=layout)
         arms.append(ArmTap(LMArm(arm["arch"], lm, cls_ids, tokens_per_query=mix["seq_len"]),
                            i, calls, trace))
     hist = gen.make_history(pool, mix)
@@ -250,17 +266,36 @@ def drive(prog: Dict, cell: Cell, seed: int, stream: str, seconds: float, trace:
 
 
 def launch_counts() -> Dict[str, int]:
+    """The launch counter of each kernel entry point (a profiler row's name
+    fragment): every kernel under ``thriftbench/rooflines/``, and the
+    kernels no block file launches."""
     from repro_torch.kernels import ops
-    return {"flash_attention_kernel": ops.flash_attention.launches,
-            "mamba_scan_kernel": ops.mamba_scan.launches,
-            "rglru_scan_kernel": ops.rglru_scan.launches,
-            "belief_aggregate_kernel": ops.belief_aggregate.launches,
-            "mc_tie_hist": ops.mc_correctness.launches + ops.mc_correctness_grouped.launches}
+
+    rows = dict(OTHER_KERNELS)
+    for name in arith.kernel_names():
+        kern = arith.load_kernel(name)
+        rows[kern.ROW] = (kern.COUNTER,)
+    return {row: sum(getattr(ops, c).launches for c in counters) for row, counters in rows.items()}
+
+
+def launch_mismatches(cell: Cell, calls: List, delta: Dict[str, int]) -> List[str]:
+    """Each kernel under ``thriftbench/rooflines/`` whose launches counted over
+    a stretch differ from the sum of the block files' ``launches`` over the
+    arm calls made in it."""
+    per_arm = {i: arith.launches(a["model"]) for i, a in enumerate(cell.config["arms"])}
+    bad = []
+    for name in arith.kernel_names():
+        expect = sum(per_arm[c[0]].get(name, 0) for c in calls)
+        got = delta[arith.load_kernel(name).ROW]
+        if expect != got:
+            bad.append(f"{name}: {got} launches counted, {expect} by the arm calls in the slice")
+    return bad
 
 
 def traced_slice(prog: Dict, cell: Cell, seed: int, log) -> Dict:
     """The profiled stretch of the cell's traffic, its rows held to the
-    launch counters; taken again once where they disagree."""
+    launch counters and the counters to the arm calls; taken again once
+    where they disagree."""
     seconds = float(cell.cell["profile_s"])
     for attempt in (1, 2):
         n_calls = len(prog["calls"])
@@ -269,12 +304,8 @@ def traced_slice(prog: Dict, cell: Cell, seed: int, log) -> Dict:
         prof = tprof.trace(lambda: drive(prog, cell, seed, "profile", seconds, True, bank))
         delta = {k: v - before[k] for k, v in launch_counts().items()}
         parsed = tprof.parse(prof)
-        bad = tprof.check_rows(parsed, delta)
         calls = prog["calls"][n_calls:]
-        expect = sum(arith.attention_layers(cell.config["arms"][c[0]]["model"]) for c in calls)
-        if expect != delta["flash_attention_kernel"]:
-            bad.append(f"flash_attention: {delta['flash_attention_kernel']} launches counted, "
-                       f"{expect} by the arm calls in the slice")
+        bad = tprof.check_rows(parsed, delta) + launch_mismatches(cell, calls, delta)
         if not bad:
             parsed["calls"] = calls
             parsed["launches"] = delta

@@ -34,6 +34,7 @@ import torch
 from thriftbench.reference import router as rr
 from thriftbench.reference.model import answer_logits
 from thriftbench.traffic import generate as gen
+from thriftbench.weights import derived, load_block
 
 INVALID_GAP = 1e9      # the gap of an answer that is no class at all
 
@@ -120,10 +121,11 @@ def router_counts(cell, seed: int, served: Dict) -> Dict[str, int]:
 def sample_rows(cell, served: Dict, seed: int) -> Dict[int, List[Tuple[int, np.ndarray]]]:
     """Each arm's sampled rows, drawn from the seed, as (call index, row
     indices) pairs. An arm named in the cell file's ``check.calls`` is
-    sampled by that many whole calls, since a MoE layer's capacity counts
-    the tokens of the batch a row was served in; every other arm by
-    ``check.rows_per_arm`` rows drawn from all its calls. An arm that served
-    fewer is checked whole."""
+    sampled by that many whole calls; every other arm by
+    ``check.rows_per_arm`` rows drawn from all its calls. An arm with a
+    layer whose block file sets ``BATCH_COUPLED`` (a MoE layer's capacity
+    counts the tokens of the batch a row was served in) has to be named
+    there. An arm that served fewer is checked whole."""
     check = cell.cell["check"]
     arms = cell.config["arms"]
     whole = check.get("calls", {})
@@ -139,8 +141,11 @@ def sample_rows(cell, served: Dict, seed: int) -> Dict[int, List[Tuple[int, np.n
             chosen = rng.choice(len(idx), size=min(int(whole[arch]), len(idx)), replace=False)
             picks[arm] = [(idx[c], np.arange(sizes[c])) for c in sorted(chosen.tolist())]
             continue
-        if "moe" in arms[arm]["model"]["block_pattern"]:
-            raise ValueError(f"{arch} has MoE layers: check.calls has to sample it by whole calls")
+        coupled = sorted({t for t in derived(arms[arm]["model"])["layer_types"]
+                          if load_block(t).BATCH_COUPLED})
+        if coupled:
+            raise ValueError(f"{arch} has {coupled} layers, which couple the rows of a batch: "
+                             "check.calls has to sample it by whole calls")
         ends = np.cumsum(sizes)
         flat = np.sort(rng.choice(int(ends[-1]), size=min(int(check["rows_per_arm"]), int(ends[-1])),
                                   replace=False))

@@ -2,13 +2,12 @@
 layer, from weights it draws itself (:mod:`thriftbench.weights`).
 
 It follows the published architectures as the program's configurations
-name them: pre-norm blocks with RMSNorm scaled by ``1 + scale``; GQA
-attention with RoPE rotating the two halves of each head, causal and (when
-``window`` > 0) windowed; SwiGLU or tanh-GELU MLPs; top-k mixture of
-experts with softmax over the k chosen logits and capacity
-``ceil(T k / E * factor)`` rounded up to 8, pairs ranked by token-major
-arrival and dropped past it; Mamba-1 blocks (causal depthwise conv, SiLU,
-selective scan, SiLU gate). It imports nothing of the program.
+name them: pre-norm blocks with RMSNorm scaled by ``1 + scale``, each layer
+the ``forward`` of its block type's file, ``thriftbench/blocks/<type>.py``
+(GQA attention with SwiGLU or GELU MLPs, top-k mixture of experts, Mamba-1),
+built from the helpers here: :func:`mm`, :func:`bmm`, :func:`rmsnorm`,
+:func:`rope` and the MoE :func:`capacity` rule. It imports nothing of the
+program.
 
 ``precision`` is ``"f32"`` (the reference) or ``"fp8"`` (the control): every
 projection, MLP, router, expert and head product is taken on e4m3 copies of
@@ -24,9 +23,8 @@ import math
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
-from thriftbench.weights import derived, draw_ends, draw_layer
+from thriftbench.weights import derived, draw_ends, draw_layer, load_block
 
 PRECISIONS = ("f32", "fp8")
 E4M3_MAX = 448.0
@@ -74,107 +72,15 @@ def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def attention(x: torch.Tensor, p: Dict, m: Dict, precision: str) -> torch.Tensor:
-    B, S, _ = x.shape
-    H, G, hd = m["num_heads"], m["num_kv_heads"], m["head_dim"]
-    q = rope(mm(x, p["wq"], precision).view(B, S, H, hd), m["rope_theta"])
-    k = rope(mm(x, p["wk"], precision).view(B, S, G, hd), m["rope_theta"])
-    v = mm(x, p["wv"], precision).view(B, S, G, hd)
-    rep = H // G                                   # query head h reads kv head h // rep
-    k = k.repeat_interleave(rep, dim=2)
-    v = v.repeat_interleave(rep, dim=2)
-    scores = torch.einsum("bshd,bthd->bhst", q, k) / math.sqrt(hd)
-    pos = torch.arange(S, device=x.device)
-    visible = pos[:, None] >= pos[None, :]
-    if m.get("window", 0) > 0:
-        visible &= (pos[:, None] - pos[None, :]) < m["window"]
-    scores = scores.masked_fill(~visible, float("-inf"))
-    out = torch.einsum("bhst,bthd->bshd", torch.softmax(scores, dim=-1), v)
-    return mm(out.reshape(B, S, H * hd), p["wo"], precision)
-
-
-def mlp(x: torch.Tensor, p: Dict, m: Dict, precision: str) -> torch.Tensor:
-    if m["mlp_variant"] == "swiglu":
-        hidden = F.silu(mm(x, p["wg"], precision)) * mm(x, p["wu"], precision)
-    else:
-        hidden = F.gelu(mm(x, p["wg"], precision), approximate="tanh")
-    return mm(hidden, p["wd"], precision)
-
-
 def capacity(tokens: int, m: Dict) -> int:
     cap = math.ceil(tokens * m["experts_per_token"] / m["num_experts"] * m["expert_capacity_factor"])
     return max(8, -(-cap // 8) * 8)
 
 
-def moe(x: torch.Tensor, p: Dict, m: Dict, precision: str, segments) -> torch.Tensor:
-    """Top-k experts over the tokens of each segment of rows (one served
-    batch each), with that segment's capacity."""
-    B, S, D = x.shape
-    E, k = m["num_experts"], m["experts_per_token"]
-    T = B * S
-    flat = x.reshape(T, D)
-    logits = mm(flat, p["router"], precision)
-    # descending by value, the lower expert first on a tie; -0.0 below +0.0
-    bits = logits.contiguous().view(torch.int32)
-    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
-    idx = torch.sort(key, dim=-1, descending=True, stable=True).indices[:, :k]
-    gate = torch.softmax(logits.gather(-1, idx), dim=-1)             # (T, k)
-    pair_expert = idx.reshape(-1)                                    # token-major pairs
-    keep = torch.zeros_like(pair_expert, dtype=torch.bool)
-    lo = 0
-    for rows in segments:
-        hi = lo + rows * S * k
-        seg = pair_expert[lo:hi]
-        onehot = F.one_hot(seg, E)
-        rank = (torch.cumsum(onehot, dim=0) - 1).gather(1, seg[:, None])[:, 0]
-        keep[lo:hi] = rank < capacity(rows * S, m)
-        lo = hi
-    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
-    token = torch.arange(T, device=x.device).repeat_interleave(k)
-    weight = gate.reshape(-1)
-    gated = m["mlp_variant"] == "swiglu"
-    for e in range(E):
-        sel = torch.nonzero(keep & (pair_expert == e))[:, 0]
-        if sel.numel() == 0:
-            continue
-        xe = flat[token[sel]][None]
-        h = bmm(xe, p["ewg"][e][None], precision)
-        h = F.silu(h) * bmm(xe, p["ewu"][e][None], precision) if gated else \
-            F.gelu(h, approximate="tanh")
-        ye = bmm(h, p["ewd"][e][None], precision)[0]
-        out.index_add_(0, token[sel], ye * weight[sel, None])
-    return out.view(B, S, D)
-
-
-def mamba(x: torch.Tensor, p: Dict, m: Dict, precision: str) -> torch.Tensor:
-    B, S, _ = x.shape
-    Din, N, R, K = m["d_inner"], m["ssm_state"], m["ssm_dt_rank"], m["ssm_conv"]
-    xz = mm(x, p["w_in"], precision)
-    xs, z = xz[..., :Din], xz[..., Din:]
-    w = p["conv_w"].float()                                          # (Din, K)
-    padded = F.pad(xs, (0, 0, K - 1, 0))                             # zeros before t = 0
-    conv = sum(padded[:, i:i + S] * w[:, i] for i in range(K)) + p["conv_b"].float()
-    u = F.silu(conv)
-    proj = mm(u, p["w_x"], precision)
-    dt = F.softplus(mm(proj[..., :R], p["w_dt"], precision) + p["b_dt"].float())
-    Bm, Cm = proj[..., R:R + N], proj[..., R + N:]
-    A = -torch.exp(p["a_log"].float())                               # (Din, N)
-    h = torch.zeros((B, Din, N), dtype=torch.float32, device=x.device)
-    ys = []
-    for t in range(S):
-        h = torch.exp(dt[:, t, :, None] * A) * h + (dt[:, t] * u[:, t])[..., None] * Bm[:, t, None, :]
-        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
-    y = torch.stack(ys, dim=1) + u * p["d_skip"].float()
-    return mm(y * F.silu(z), p["w_out"], precision)
-
-
 def block(h: torch.Tensor, btype: str, p: Dict, m: Dict, precision: str, segments) -> torch.Tensor:
-    eps = m["norm_eps"]
-    if btype == "ssm":
-        return h + mamba(rmsnorm(h, p["ln"], eps), p, m, precision)
-    h = h + attention(rmsnorm(h, p["ln1"], eps), p, m, precision)
-    x = rmsnorm(h, p["ln2"], eps)
-    return h + (moe(x, p, m, precision, segments) if btype == "moe" else mlp(x, p, m, precision))
+    """One layer of type ``btype``, its residuals included: the ``forward`` of
+    ``thriftbench/blocks/<btype>.py``."""
+    return load_block(btype).forward(h, p, m, precision, segments)
 
 
 @torch.no_grad()

@@ -10,6 +10,29 @@ mix or metric: a later change adds one by adding files.
     thriftbench/traffic/budgets/<kind>.py   the budget kind a mix names
     thriftbench/workloads/<cell>.json   scheduler settings, checks, limits
     thriftbench/metrics/<metric>.py     one reader of one per-layer metric
+
+An architecture is added the same way. An arm's ``model`` names each
+layer's block type (``layer_types``, or ``block_pattern`` cycled), and
+each type and each kernel is a file:
+
+    thriftbench/blocks/<type>.py        spec(m): the layer's tensors in draw
+                                        order; residual_depth(m); forward(h,
+                                        p, m, precision, segments): the plain
+                                        reference layer; flops(m, S);
+                                        launches(m): {kernel: launches};
+                                        BATCH_COUPLED: whether a row's output
+                                        depends on the other rows of its
+                                        served batch (then the check samples
+                                        the arm by whole calls); with flash
+                                        launches, flash_shape(m)
+    thriftbench/rooflines/<kernel>.py   COUNTER: its launch counter in
+                                        ``repro_torch.kernels.ops``; ROW: its
+                                        profiler row's name fragment;
+                                        bound(m, btype, B, S): one launch's
+                                        ops, bytes, bound_s and term
+
+A kernel's roofline metric is then a reader of three lines that calls
+``metrics._shared.roofline(ctx, "<kernel>")``.
 """
 from __future__ import annotations
 

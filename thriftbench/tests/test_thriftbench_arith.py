@@ -60,6 +60,24 @@ def test_mamba_bound_at_the_route_shape():
     assert 0.15e-3 < got["bound_s"] < 0.18e-3
 
 
+@pytest.mark.parametrize("B,S,D", [(128, 127, 4096), (2, 3, 4)])
+def test_causal_conv1d_bound_by_hand(B, S, D):
+    """The x half read once and y written once (bf16), the taps (bf16) and
+    the bias (f32) once: at falcon-mamba-7b's route shape, 0.159 ms."""
+    model = dict(MAMBA, d_model=D)
+    Din, K = 2 * D, 4
+    got = arith.load_kernel("causal_conv1d").bound(derived(model), "ssm", B, S)
+    x_y = 2 * (B * S * Din) * 2
+    w_b = 2 * Din * K + 4 * Din
+    assert got["bytes"] == x_y + w_b
+    assert got["ops"] == B * S * Din * (2 * K + 1)
+    assert got["term"] == "bytes"
+    assert got["bound_s"] == got["bytes"] / 3.35e12
+    if B == 128:
+        assert x_y + w_b == 532_774_912
+        assert 0.1590e-3 < got["bound_s"] < 0.1591e-3
+
+
 @pytest.mark.parametrize("arch", sorted(tiny.ARMS))
 def test_forward_flops_by_hand(arch):
     model = tiny.ARMS[arch]

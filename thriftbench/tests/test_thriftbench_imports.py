@@ -39,6 +39,16 @@ def test_reference_imports_nothing_of_the_program(path):
             assert node.module.split(".")[1] in ("reference", "weights", "traffic")
 
 
+@pytest.mark.parametrize("path", sorted((BENCH / "blocks").glob("*.py")), ids=lambda p: p.name)
+def test_block_files_import_nothing_of_the_program(path):
+    """A block file's ``forward`` is part of the plain reference."""
+    names = top_level_imports(path)
+    assert "repro_torch" not in names and not names & FORBIDDEN
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.module and node.module.startswith("thriftbench"):
+            assert node.module.split(".")[1] in ("reference", "weights", "blocks", "metrics")
+
+
 def test_the_whole_reference_loads_without_the_program():
     code = ("import sys; sys.path.insert(0, %r); import thriftbench.reference.check, "
             "thriftbench.reference.model, thriftbench.reference.router; "

@@ -11,24 +11,27 @@ Layout (the one ``LM`` takes)::
      "layers": [{name: tensor}, ...]}
 
 with ``Vp`` the vocabulary rounded up to 256 and each layer's tensors under
-the names of its block type (``attn``, ``moe``, ``ssm``). Every matrix of a
-layer comes from one ``torch.randn`` call into one flat buffer on the
-device, in the model's dtype, from a generator seeded by (seed, arm, layer);
-each matrix is a view of that buffer scaled in place.
+the names its block type's file gives them (``blocks/<type>.py``). Every
+matrix of a layer comes from one ``torch.randn`` call into one flat buffer
+on the device, in the model's dtype, from a generator seeded by (seed, arm,
+layer); each matrix is a view of that buffer scaled in place.
 
 The draw: N(0, 1/fan_in) for every matrix and N(0, 0.02^2) for the
 embedding, as the port's own initialiser draws them, except that the
 matrices that write into the residual stream (``wo``, ``wd``, ``ewd``,
-``w_out``) are scaled by 1/sqrt(2 L) in attention and MoE blocks (GPT-2's
-residual scaling) and by 1/sqrt(L) in Mamba blocks (mamba_ssm's
-``rescale_prenorm_residual``), and ``b_dt`` is the inverse softplus of dt ~
-log-uniform [1e-3, 1e-1], Mamba's published dt initialisation. Without
+``w_out``) are scaled by 1/sqrt of the block file's ``residual_depth``: 2 L
+in attention and MoE blocks (GPT-2's residual scaling), L in Mamba blocks
+(mamba_ssm's ``rescale_prenorm_residual``); and ``b_dt`` is the inverse
+softplus of dt ~ log-uniform [1e-3, 1e-1], Mamba's published dt
+initialisation. Without
 the residual scaling a 64-layer random Mamba stack amplifies a bf16
 rounding as far as an fp8 one, and no comparison could tell them apart.
 """
 from __future__ import annotations
 
+import importlib
 import math
+from pathlib import Path
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -39,7 +42,9 @@ OUT_MATRICES = ("wo", "wd", "ewd", "w_out")
 
 def derived(model: Dict) -> Dict:
     """The sizes a configuration leaves to their defaults, worked out as the
-    published configurations define them."""
+    published configurations define them, and each layer's block type: the
+    model's ``layer_types`` where it lists them, else ``block_pattern``
+    cycled over ``num_layers``."""
     m = dict(model)
     if not m.get("head_dim") and m.get("num_heads"):
         m["head_dim"] = m["d_model"] // m["num_heads"]
@@ -47,46 +52,41 @@ def derived(model: Dict) -> Dict:
         m["ssm_dt_rank"] = math.ceil(m["d_model"] / 16)
     m["d_inner"] = m.get("ssm_expand", 2) * m["d_model"]
     m["vocab_padded"] = -(-m["vocab_size"] // 256) * 256
-    pat = list(m["block_pattern"])
-    m["layer_types"] = [pat[i % len(pat)] for i in range(m["num_layers"])]
+    types = m.get("layer_types")
+    if types is None:
+        pat = list(m["block_pattern"])
+        types = [pat[i % len(pat)] for i in range(m["num_layers"])]
+    if len(types) != m["num_layers"]:
+        raise ValueError(f"layer_types lists {len(types)} layers, num_layers is {m['num_layers']}")
+    m["layer_types"] = list(types)
     return m
+
+
+def find_module(package: str, name: str, what: str):
+    """The module ``<package>.<name>``: the one file of the benchmark that
+    holds ``what`` ``name``, found by that name."""
+    full = f"{package}.{name}"
+    if name.isidentifier():
+        try:
+            return importlib.import_module(full)
+        except ModuleNotFoundError as e:
+            if e.name != full:
+                raise
+    where = Path(importlib.import_module(package).__path__[0]) / f"{name}.py"
+    raise ValueError(f"{what} {name!r} has no file: {where} is missing")
+
+
+def load_block(btype: str):
+    """The module of ``blocks/<btype>.py``: the draw, the reference, the FLOPs
+    and the kernel launches of one layer of that type."""
+    return find_module("thriftbench.blocks", btype, "block type")
 
 
 def layer_spec(m: Dict, btype: str) -> List[Tuple[str, Tuple[int, ...], str, int]]:
     """(name, shape, kind, fan_in) of every tensor of one layer, in draw
     order. ``kind`` is ``mat`` (a drawn matrix), ``zeros``, ``ones``,
     ``a_log`` or ``b_dt``."""
-    D, F = m["d_model"], m["d_ff"]
-    H, G, hd = m["num_heads"], m["num_kv_heads"], m.get("head_dim", 0)
-    out: List[Tuple[str, Tuple[int, ...], str, int]] = []
-    if btype in ("attn", "moe"):
-        out += [("ln1", (D,), "zeros", 0), ("wq", (D, H * hd), "mat", D),
-                ("wk", (D, G * hd), "mat", D), ("wv", (D, G * hd), "mat", D),
-                ("wo", (H * hd, D), "mat", H * hd), ("ln2", (D,), "zeros", 0)]
-        gated = m["mlp_variant"] == "swiglu"
-        if btype == "attn":
-            out.append(("wg", (D, F), "mat", D))
-            if gated:
-                out.append(("wu", (D, F), "mat", D))
-            out.append(("wd", (F, D), "mat", F))
-        else:
-            E = m["num_experts"]
-            out += [("router", (D, E), "mat", D), ("ewg", (E, D, F), "mat", D)]
-            if gated:
-                out.append(("ewu", (E, D, F), "mat", D))
-            out.append(("ewd", (E, F, D), "mat", F))
-        if m.get("qkv_bias"):
-            raise ValueError("qkv_bias is not drawn by this benchmark")
-    elif btype == "ssm":
-        Din, N, R, K = m["d_inner"], m["ssm_state"], m["ssm_dt_rank"], m["ssm_conv"]
-        out += [("ln", (D,), "zeros", 0), ("w_in", (D, 2 * Din), "mat", D),
-                ("conv_w", (Din, K), "mat", K), ("conv_b", (Din,), "zeros", 0),
-                ("w_x", (Din, R + 2 * N), "mat", Din), ("w_dt", (R, Din), "mat", R),
-                ("b_dt", (Din,), "b_dt", 0), ("a_log", (Din, N), "a_log", 0),
-                ("d_skip", (Din,), "ones", 0), ("w_out", (Din, D), "mat", Din)]
-    else:
-        raise ValueError(f"block type {btype!r} has no draw here")
-    return out
+    return load_block(btype).spec(m)
 
 
 def _gen_seed(seed: int, arm: int, slot: int) -> int:
@@ -107,12 +107,12 @@ def draw_layer(model: Dict, i: int, seed: int, arm: int, device) -> Dict[str, to
     m = derived(model)
     dev = torch.device(device)
     dtype = getattr(torch, m["dtype"])
-    btype = m["layer_types"][i]
-    spec = layer_spec(m, btype)
+    block = load_block(m["layer_types"][i])
+    spec = block.spec(m)
     gen = _generator(dev, seed, arm, i)
     total = sum(math.prod(s) for _, s, k, _ in spec if k == "mat")
     flat = torch.randn(total, generator=gen, device=dev, dtype=dtype)
-    depth = 2 * m["num_layers"] if btype in ("attn", "moe") else m["num_layers"]
+    depth = block.residual_depth(m)
     out: Dict[str, torch.Tensor] = {}
     at = 0
     for name, shape, kind, fan_in in spec:
