@@ -68,7 +68,9 @@ Phases:
    bf16 (2e-2) and f32 (2e-5), and in both dtypes at the other families'
    route shapes at B=2, at hd 40, 96 and 112, ratio 9 with S < T, a window
    that binds at ratio 4, prompts whose keys stream (S = 1100 and 1500)
-   and ratio 128; ``causal_conv1d`` bitwise at falcon-mamba's path case
+   and ratio 128, and at Moonlight's MLA path (B=128, H=G=16, q/k 192, v
+   128 zero-padded by the wrapper: one launch, the output at v's 128);
+   ``causal_conv1d`` bitwise at falcon-mamba's path case
    (B=128, x the x-half of a (B, S, 2 x 8192) bf16 split, SiLU), at
    recurrentgemma's width without the SiLU, one decode step from a state,
    S < K-1, f32, ragged channels, and every bf16 value through its SiLU;
@@ -98,7 +100,10 @@ Phases:
     by its exponentials at the card's maximum SM clock; ``causal_conv1d``
     at the benchmark's group of 128 and the route's 64, with the SiLU, x the
     split's x-half, bound by its bytes, beside the same pass without the
-    SiLU and the plain version's 21 launches);
+    SiLU and the plain version's 21 launches; ``flash_attention`` also at
+    Moonlight's MLA path: the wrapper's call, the padded kernel alone, the
+    bytes bound at v 128 and SDPA, in the ``kernels`` line's flash row
+    under ``by_shape``);
 11. GreedyLLM on MC xi — GreedyLLM (Alg. 1) scoring candidates with
     ``McXiEstimator(use_kernel=True)`` on the card, held to the same run on
     the CPU (equal picks and final xi): (a) the Fig. 11 setting of
@@ -998,9 +1003,11 @@ def _randn(shape, gen, dev, scale=1.0):
     return torch.randn(shape, generator=gen, device=dev).mul_(scale)
 
 
-def flash_inputs(B, S, T, H, G, hd, dtype, seed, dev):
+def flash_inputs(B, S, T, H, G, hd, dtype, seed, dev, dv=None):
+    """q, k and v; v's head dim ``dv`` (default ``hd``) may be narrower."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return tuple(_randn(s, gen, dev).to(dtype) for s in ((B, S, H, hd), (B, T, G, hd), (B, T, G, hd)))
+    return tuple(_randn(s, gen, dev).to(dtype)
+                 for s in ((B, S, H, hd), (B, T, G, hd), (B, T, G, hd if dv is None else dv)))
 
 
 def rglru_inputs(B, S, D, seed, dev):
@@ -1026,7 +1033,12 @@ def mamba_path_inputs(B, S, Din, N, R, seed, dev):
     return x.to(torch.bfloat16), dt, A, Bm, Cm, D, None
 
 
-# (label, B, S, T, H, G, hd, window, dtype, atol): the two path shapes in
+# Moonlight-16B-A3B's latent attention at the benchmark's group of 128:
+# q/k 192, v 128, which the wrapper pads to 192 for one v3 launch (hd 192
+# runs in its 256 template)
+FLASH_MLA = ("moonlight MLA path", 128, 127, 127, 16, 16, 192, 128, 0, torch.bfloat16,
+             FLASH_BF16_ATOL)
+# (label, B, S, T, H, G, hd, dv, window, dtype, atol), dv v's head dim: the two path shapes in
 # bf16, bf16 at ragged lengths, a small window, hd 16 / 32 / 128 and
 # query / kv head ratios 1, 3 and 16, then f32 with and without windows,
 # at hd 64 and 256; then head dims that are no template's (the kernels
@@ -1034,7 +1046,9 @@ def mamba_path_inputs(B, S, Din, N, R, seed, dev):
 # bf16 and f32, with and without a window; then, in both dtypes, the
 # other families' route shapes at B=2, hd 40 / 96 / 112, ratio 9 with
 # S < T, a window that binds at ratio 4, prompts whose keys stream through
-# v4's slots, and ratio 128 (tests/test_torch_kernels_cuda.py's FLASH_NEW)
+# v4's slots, and ratio 128 (tests/test_torch_kernels_cuda.py's FLASH_NEW);
+# last, Moonlight's MLA path (``FLASH_MLA``), the one case with v narrower
+# than q/k, which must still be one launch
 FLASH_NEW = (
     ("danube route, B=2", 2, 127, 127, 32, 8, 80, 4096), ("starcoder2 route, B=2", 2, 127, 127, 36, 4, 128, 0),
     ("qwen route, B=2", 2, 127, 127, 64, 8, 128, 0), ("moonshot route, B=2", 2, 127, 127, 16, 16, 128, 0),
@@ -1044,24 +1058,25 @@ FLASH_NEW = (
     ("keys streamed, window 900", 1, 1500, 1500, 4, 4, 64, 900), ("ratio 128", 1, 20, 20, 128, 1, 64, 0),
 )
 FLASH_CASES = (
-    ("smollm path", 64, 127, 127, 9, 3, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
-    ("recurrentgemma path", 64, 127, 127, 16, 1, 256, 2048, torch.bfloat16, FLASH_BF16_ATOL),
-    ("ragged S < T", 2, 37, 45, 4, 2, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
-    ("window 5", 3, 37, 37, 6, 2, 16, 5, torch.bfloat16, FLASH_BF16_ATOL),
-    ("hd 32, ratio 1", 2, 70, 70, 4, 4, 32, 0, torch.bfloat16, FLASH_BF16_ATOL),
-    ("hd 128, ratio 3", 1, 129, 129, 6, 2, 128, 0, torch.bfloat16, FLASH_BF16_ATOL),
-    ("ratio 16", 2, 127, 127, 16, 1, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
-    ("f32", 2, 127, 127, 4, 2, 64, 0, torch.float32, FLASH_F32_ATOL),
-    ("f32", 2, 127, 127, 4, 2, 64, 48, torch.float32, FLASH_F32_ATOL),
-    ("f32", 1, 300, 300, 16, 1, 256, 64, torch.float32, FLASH_F32_ATOL),
-    ("hd 8", 2, 45, 45, 6, 2, 8, 0, torch.bfloat16, FLASH_BF16_ATOL),
-    ("hd 12, window 7", 2, 45, 45, 4, 2, 12, 7, torch.bfloat16, FLASH_BF16_ATOL),
-    ("hd 24", 2, 70, 70, 4, 1, 24, 0, torch.bfloat16, FLASH_BF16_ATOL),
-    ("hd 8", 2, 45, 45, 6, 2, 8, 7, torch.float32, FLASH_F32_ATOL),
-    ("hd 12", 2, 45, 45, 4, 2, 12, 0, torch.float32, FLASH_F32_ATOL),
-    ("hd 24", 2, 70, 70, 4, 1, 24, 7, torch.float32, FLASH_F32_ATOL),
-) + tuple((*case, dtype, atol) for case in FLASH_NEW
-          for dtype, atol in ((torch.bfloat16, FLASH_BF16_ATOL), (torch.float32, FLASH_F32_ATOL)))
+    ("smollm path", 64, 127, 127, 9, 3, 64, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("recurrentgemma path", 64, 127, 127, 16, 1, 256, 256, 2048, torch.bfloat16, FLASH_BF16_ATOL),
+    ("ragged S < T", 2, 37, 45, 4, 2, 64, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("window 5", 3, 37, 37, 6, 2, 16, 16, 5, torch.bfloat16, FLASH_BF16_ATOL),
+    ("hd 32, ratio 1", 2, 70, 70, 4, 4, 32, 32, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("hd 128, ratio 3", 1, 129, 129, 6, 2, 128, 128, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("ratio 16", 2, 127, 127, 16, 1, 64, 64, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("f32", 2, 127, 127, 4, 2, 64, 64, 0, torch.float32, FLASH_F32_ATOL),
+    ("f32", 2, 127, 127, 4, 2, 64, 64, 48, torch.float32, FLASH_F32_ATOL),
+    ("f32", 1, 300, 300, 16, 1, 256, 256, 64, torch.float32, FLASH_F32_ATOL),
+    ("hd 8", 2, 45, 45, 6, 2, 8, 8, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("hd 12, window 7", 2, 45, 45, 4, 2, 12, 12, 7, torch.bfloat16, FLASH_BF16_ATOL),
+    ("hd 24", 2, 70, 70, 4, 1, 24, 24, 0, torch.bfloat16, FLASH_BF16_ATOL),
+    ("hd 8", 2, 45, 45, 6, 2, 8, 8, 7, torch.float32, FLASH_F32_ATOL),
+    ("hd 12", 2, 45, 45, 4, 2, 12, 12, 0, torch.float32, FLASH_F32_ATOL),
+    ("hd 24", 2, 70, 70, 4, 1, 24, 24, 7, torch.float32, FLASH_F32_ATOL),
+) + tuple((*case[:7], case[6], case[7], dtype, atol) for case in FLASH_NEW
+          for dtype, atol in ((torch.bfloat16, FLASH_BF16_ATOL), (torch.float32, FLASH_F32_ATOL))
+) + (FLASH_MLA,)
 RGLRU_CASES = ((64, 127, 4096), (3, 37, 200))
 MAMBA_CASES = ((64, 127, 8192, 16), (2, 37, 96, 8))
 MAMBA_PATH = (64, 127, 8192, 16, 256)   # falcon-mamba-7b: B, S, d_inner, N, dt_rank
@@ -1114,12 +1129,18 @@ def check_model_kernels(dev) -> dict:
     from repro_torch.kernels import ops, ref
 
     errs = {"flash_attention": 0.0, "rglru_scan": 0.0, "mamba_scan": 0.0, "causal_conv1d": 0.0}
-    for i, (label, B, S, T, H, G, hd, w, dtype, atol) in enumerate(FLASH_CASES):
-        args = flash_inputs(B, S, T, H, G, hd, dtype, seed=10 + i, dev=dev)
+    for i, (label, B, S, T, H, G, hd, dv, w, dtype, atol) in enumerate(FLASH_CASES):
+        args = flash_inputs(B, S, T, H, G, hd, dtype, seed=10 + i, dev=dev, dv=dv)
         plain = ref.flash_attention_ref(*(a.float() for a in args), window=w)   # f32 plain
-        err = output_error("flash_attention", ops.flash_attention(*args, window=w), plain, atol,
-                           f"{label} B={B} S={S} T={T} H={H} G={G} hd={hd} window={w} "
-                           f"{str(dtype)[6:]}")
+        before = ops.flash_attention.launches
+        got = ops.flash_attention(*args, window=w)
+        shape = (f"{label} B={B} S={S} T={T} H={H} G={G} hd={hd} dv={dv} window={w} "
+                 f"{str(dtype)[6:]}")
+        err = output_error("flash_attention", got, plain, atol, shape)
+        if ops.flash_attention.launches != before + 1 or got.shape[-1] != dv:
+            raise AssertionError(f"flash_attention at {shape}: "
+                                 f"{ops.flash_attention.launches - before} launches, "
+                                 f"out head dim {got.shape[-1]}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
     for i, (B, S, D) in enumerate(RGLRU_CASES):
         args = rglru_inputs(B, S, D, seed=20 + i, dev=dev)
@@ -1487,16 +1508,18 @@ def forward_breakdown(arm, tokens) -> dict:
             **{f"{k}_ms": v for k, v in parts.items()}}
 
 
-def flash_bound(q, k, window: int):
+def flash_bound(q, k, window: int, dv: int = 0):
     """(bytes, operations) of one causal attention launch: q, k, v read once
-    and out written once; 4 hd flops per visible (query, key) pair."""
+    and out written once; 2 (hd + dv) flops per visible (query, key) pair,
+    v's head dim ``dv`` (default hd) in v and out."""
     B, S, H, hd = q.shape
     T = k.shape[1]
+    dv = dv or hd
     i = np.arange(S)
     lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(S, np.int64)
     pairs = int((np.minimum(i + 1, T) - lo).clip(min=0).sum())
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return nbytes, 4.0 * hd * pairs * B * H
+    nbytes = (q.numel() * (hd + dv) // hd + k.numel() * (hd + dv) // hd) * q.element_size()
+    return nbytes, 2.0 * (hd + dv) * pairs * B * H
 
 
 def sdpa_ms(q, k, v, window: int = 0):
@@ -1607,6 +1630,42 @@ def mamba_bound(args):
     return max(t_bytes, t_flops, t_ex2), ("bytes" if t_bytes >= max(t_flops, t_ex2) else "operations"), detail
 
 
+def mla_flash_row(dev) -> dict:
+    """Moonlight's MLA launch (``FLASH_MLA``) timed: device ms of the
+    wrapper's call (v zero-padded from dv to hd, one launch, the output
+    sliced back), of the padded kernel alone (v given at hd), the bytes
+    bound at v's own dv, and SDPA on the same q, k and v."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    label, B, S, T, H, G, hd, dv, w, dtype, _ = FLASH_MLA
+    q, k, v = flash_inputs(B, S, T, H, G, hd, dtype, seed=40, dev=dev, dv=dv)
+    padded = torch.nn.functional.pad(v, (0, hd - dv))
+    call = lambda: ops.flash_attention(q, k, v, window=w)           # noqa: E731
+    ms, ms_source = device_ms(call)
+    kernel_ms, kernel_source = device_ms(lambda: ops.flash_attention(q, k, padded, window=w),
+                                         launches=1)
+    plain_ms, _ = device_ms(lambda: ref.flash_attention_ref(q, k, v, window=w), n=5)
+    b_ms, b_by = bound_ms(*flash_bound(q, k, w, dv), BF16_OPS_PER_S)
+    before = ops.flash_attention.launches
+    call()
+    launches = ops.flash_attention.launches - before
+    tl = fa.tiling(B, S, T, H, G, hd, dtype, True, w)
+    row = {"shape": f"{label}: B={B} S={S} H={H} G={G} q/k hd={hd} v dv={dv} window={w} bf16",
+           "ms": ms, "ms_source": ms_source, "kernel_ms": kernel_ms,
+           "kernel_ms_source": kernel_source, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": sdpa_ms(q, k, v),
+           "call_ms": median_ms(call), "launches_a_call": launches,
+           "pad_or_copy_ops": pad_or_copy_ops(call), "design": tl.kernel,
+           "grid": list(tl.grid), "fill_bytes": tl.fill_bytes, "device_bytes": tl.device_bytes}
+    log(f"  flash_attention {row['shape']}: "
+        f"{json.dumps({k_: v_ for k_, v_ in row.items() if k_ != 'shape'})}")
+    if row["launches_a_call"] != 1:
+        raise AssertionError(f"flash_attention at {row['shape']} counted "
+                             f"{row['launches_a_call']} launches a call")
+    return row
+
+
 def time_model_kernels(launches: dict, errs: dict) -> list:
     """Each model kernel at the LM-arm route's shapes and dtypes (B=64
     queries, S=127): device ms (profiler), plain ms, bound ms and the
@@ -1617,7 +1676,7 @@ def time_model_kernels(launches: dict, errs: dict) -> list:
     dev = torch.device("cuda", 0)
     rows = []
     flash_shapes = []
-    for label, B, S, T, H, G, hd, w, dtype, _ in FLASH_CASES[:2]:
+    for label, B, S, T, H, G, hd, dv, w, dtype, _ in FLASH_CASES[:2]:
         args = flash_inputs(B, S, T, H, G, hd, dtype, seed=40, dev=dev)
         ms, ms_source = device_ms(lambda: ops.flash_attention(*args, window=w))
         plain_ms, _ = device_ms(lambda: ref.flash_attention_ref(*args, window=w), n=5)
@@ -1630,6 +1689,7 @@ def time_model_kernels(launches: dict, errs: dict) -> list:
                              "rows": flash_kernel_rows(lambda: ops.flash_attention(*args, window=w)),
                              "design": tl.kernel, "grid": list(tl.grid),
                              "fill_bytes": tl.fill_bytes, "device_bytes": tl.device_bytes})
+    flash_shapes.append(mla_flash_row(dev))
     main = flash_shapes[1]                 # the heavier (recurrentgemma) shape
     rows.append({
         "name": "flash_attention", "route": "cuda",

@@ -4,7 +4,10 @@ The port's copy of ``repro/configs``. Each ported architecture has a module
 exporting ``CONFIG`` (the exact published configuration) and ``SMOKE`` (a
 reduced same-family config for CPU tests), copied verbatim. The registry
 lists the JAX package's ten architectures in its order: the dense, MoE,
-SSM, hybrid, vision-language and audio families.
+SSM, hybrid, vision-language and audio families. ``get_config`` and
+``get_smoke_config`` also resolve the port's own architectures
+(:data:`PORT_ONLY`), which :func:`list_archs` leaves out: the JAX package
+has no layout of theirs to hold them to.
 """
 from __future__ import annotations
 
@@ -26,15 +29,21 @@ _MODULES: Dict[str, str] = {
     "musicgen-medium": "musicgen_medium",
 }
 
+# architectures of the port alone, as published
+PORT_ONLY: Dict[str, str] = {
+    "moonlight-16b-a3b": "moonlight_16b_a3b",
+}
+
 
 def list_archs() -> List[str]:
     return list(_MODULES)
 
 
 def _module(arch: str):
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {list(_MODULES)}")
-    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    known = {**_MODULES, **PORT_ONLY}
+    if arch not in known:
+        raise KeyError(f"unknown arch {arch!r}; known: {list(known)}")
+    return importlib.import_module(f"repro_torch.configs.{known[arch]}")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,5 +1,11 @@
 """moonshot-v1-16b-a3b — MoE, 64 experts top-6 (Moonlight-16B-A3B family).
 [hf:moonshotai/Moonlight-16B-A3B; hf]
+
+The JAX package's guessed layout under this name (48 layers of GQA 16/16 at
+head dim 128, a softmax top-6 router over experts of width 1408, a tied
+head, no shared experts and no dense first layer), copied verbatim and kept
+for parity with it. The published model, latent attention and all, is
+``moonlight_16b_a3b.py`` (``moonlight-16b-a3b``).
 """
 from repro_torch.models.config import ModelConfig
 

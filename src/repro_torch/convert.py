@@ -150,6 +150,7 @@ def _to_numpy(tree):
 def lm_params_from_jax(params_np: Dict, cfg) -> Dict:
     """The port's per-layer parameter layout (CPU tensors) from the JAX
     parameter pytree given as nested numpy dicts."""
+    cfg.refuse_mla("the JAX conversion")
     return unstack_params(_to_torch(params_np), cfg)
 
 
@@ -199,6 +200,7 @@ def cache_from_jax(cache_np: Dict, cfg, device="cuda") -> Dict:
     nested numpy (``LM.init_cache`` or ``LM.prefill`` of the JAX package):
     each segment's stacked leaves split into its layers, in the JAX layer
     order; ``pos`` a Python int, ``ring`` an int32 tensor or None."""
+    cfg.refuse_mla("the JAX conversion")
     layers = []
     for si, (unit, repeats) in enumerate(cfg.segments()):
         seg = cache_np["segs"][si]
@@ -224,6 +226,7 @@ def cache_to_jax(cache: Dict, cfg) -> Dict:
     """The JAX cache layout, in numpy, of the port's decode cache: each
     segment's layers stacked per leaf (``(repeats, B, T, ...)``), ``pos``
     an int32 scalar."""
+    cfg.refuse_mla("the JAX conversion")
     segs, i = [], 0
     for unit, repeats in cfg.segments():
         seg = {}

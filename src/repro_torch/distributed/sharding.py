@@ -435,6 +435,9 @@ def distribute_parameters(module: torch.nn.Module, rules: Optional[AxisRules] = 
     of their names says on ``rules``' ``DeviceMesh`` (the active rules by
     default): each becomes a ``DTensor`` parameter, ``requires_grad`` kept.
     Returns ``module``."""
+    cfg = getattr(module, "cfg", None)
+    if cfg is not None and hasattr(cfg, "refuse_mla"):
+        cfg.refuse_mla("the sharded step (distribute_parameters)")
     rules = rules or _ACTIVE
     if rules is None or not is_device_mesh(rules.mesh):
         raise ValueError("distribute_parameters needs rules over a DeviceMesh")

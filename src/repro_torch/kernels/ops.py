@@ -174,14 +174,26 @@ def _launch_flash(q, k, v, causal, window):
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
-    """(B, S, H, hd) x (B, T, G, hd) -> (B, S, H, hd) causal / windowed GQA
-    attention in q's dtype (f32 or bf16), 1 <= hd <= 256."""
+    """(B, S, H, hd) x (B, T, G, hd) k x (B, T, G, dv) v -> (B, S, H, dv)
+    causal / windowed GQA attention in q's dtype (f32 or bf16), 1 <= hd <=
+    256, dv <= hd. On the card a v narrower than q/k (latent attention: q/k
+    192, v 128) is zero-padded to hd, written once from whatever strides v
+    has, and the output is the first dv columns of the kernel's (a view):
+    one launch still, the padded columns adding products and bytes. The
+    pad and the slice are differentiable, so the backward sees the padded
+    launch's plain version."""
     _refuse_distributed(q, k, v)
+    dv, hd = v.shape[-1], q.shape[-1]
+    if dv > hd:
+        raise ValueError(f"flash_attention takes v's head dim {dv} at most q/k's {hd}")
     if _device_kind(q) == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    return KernelFunction.apply(_launch_flash, ref.flash_attention_ref,
-                                {"causal": causal, "window": window},
-                                q.contiguous(), k.contiguous(), v.contiguous())
+    if dv < hd:
+        v = torch.nn.functional.pad(v, (0, hd - dv))
+    out = KernelFunction.apply(_launch_flash, ref.flash_attention_ref,
+                               {"causal": causal, "window": window},
+                               q.contiguous(), k.contiguous(), v.contiguous())
+    return out if dv == hd else out[..., :dv]
 
 
 flash_attention.launches = 0

@@ -36,7 +36,9 @@ def mc_correctness_grouped_ref(responses, masks, log_weights, empty_belief,
 
 def flash_attention_ref(q, k, v, causal=True, window=0):
     """Direct softmax attention in f32 (no blocking), out in q's dtype: the
-    same function as ``repro/models/attention.py::direct_attention``. A row
+    same function as ``repro/models/attention.py::direct_attention``. v's
+    head dim may be below q/k's (latent attention): out takes v's, the
+    scores q's 1 / sqrt(hd). A row
     that sees no key gets the mean of v here (softmax over equal masked
     scores), where the kernel writes 0; self-attention never has one."""
     # imported here: models.attention imports kernels.ops, which imports this module

@@ -95,6 +95,7 @@ def dryrun_cell(
     cfg = get_config(arch)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
+    cfg.refuse_mla("the sharded dry run and its sharding specs")
     shape = SHAPES[shape_name]
     mesh_name = _mesh_name(multi_pod)
     rec: Dict[str, Any] = {

@@ -108,6 +108,7 @@ def _rec_flops(cfg: ModelConfig, tokens: float) -> float:
 
 def analytic_flops(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, float]:
     """Global forward / total FLOPs of this implementation for one step."""
+    cfg.refuse_mla("the roofline accounting")
     Bt = float(shape.global_batch)
     win = block_window(cfg)
     if shape.kind in ("train", "prefill"):
@@ -160,6 +161,7 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
 
 def analytic_bytes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, float]:
     """Global HBM traffic estimate (bytes) for one step of this impl."""
+    cfg.refuse_mla("the roofline accounting")
     n_params = cfg.param_count()
     p_bytes = 2.0 if cfg.dtype == "bfloat16" else 4.0
     Bt = float(shape.global_batch)
@@ -230,6 +232,7 @@ def analytic_memory(
 
 
 def _cache_bytes(cfg: ModelConfig, shape: ShapeConfig, p_bytes: float) -> float:
+    cfg.refuse_mla("the roofline accounting")
     win = block_window(cfg)
     T = float(min(win, shape.seq_len) if win else shape.seq_len)
     B = float(shape.global_batch)

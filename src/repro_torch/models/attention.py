@@ -2,7 +2,9 @@
 (materialised scores), blocked flash-style path (online softmax over KV
 blocks) and the dispatcher.
 
-Shapes: q (B, S, H, hd); k, v (B, T, G, hd) with H = G * group_size.
+Shapes: q (B, S, H, hd); k (B, T, G, hd), v (B, T, G, dv) with H = G *
+group_size and v's head dim dv at most hd (latent attention's v is
+narrower than its q/k; out is (B, S, H, dv), the scores scaled by q's hd).
 Masking supports causality, sliding windows, and a KV length limit.
 
 Dispatch: on a CUDA tensor, prefill self-attention (``q_offset == 0``, no
@@ -69,7 +71,7 @@ def direct_attention(
         scores = torch.where(m[None, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrst,btgd->bsgrd", probs, v.float())
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 def blocked_attention(
@@ -105,7 +107,7 @@ def blocked_attention(
     q_pos = q_offset_static + torch.arange(S, device=dev)
     m_run = torch.full((B, S, G, gs), NEG_INF, dtype=torch.float32, device=dev)
     l_run = torch.zeros((B, S, G, gs), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, S, G, gs, hd), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, S, G, gs, v.shape[-1]), dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     for blk in range(n_blocks):
         kblk = k[:, blk * bk:(blk + 1) * bk].float()
@@ -130,7 +132,7 @@ def blocked_attention(
         acc = acc * alpha[..., None] + torch.einsum("bsgrt,btgd->bsgrd", p, vblk)
         m_run = m_new
     out = acc / torch.clamp(l_run, min=1e-30)[..., None]
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 def bucketed_causal_attention(

@@ -16,15 +16,24 @@ cache per layer per step would dominate a decode step at width.
 
 Caches hold, per attention layer, ``k``/``v`` (B, T, G, hd) in the model
 dtype after RoPE (int8 with ``k_scale``/``v_scale`` (B, T, G, 1) f32 when
-quantized), per SSM layer ``conv`` (B, K-1, d_inner) and ``h`` (B,
-d_inner, N) f32, per recurrent layer ``conv`` (B, K-1, Dr) and ``h`` (B,
-Dr) f32: the JAX leaves of one layer, time on dim 1. The blocks take
+quantized), per latent-attention layer ``c_kv`` (B, T, kv_lora_rank) and
+``k_pe`` (B, T, qk_rope_head_dim) (``models/mla.py``), per SSM layer
+``conv`` (B, K-1, d_inner) and ``h`` (B, d_inner, N) f32, per recurrent
+layer ``conv`` (B, K-1, Dr) and ``h`` (B, Dr) f32: the JAX leaves of one
+layer, time on dim 1. The blocks take
 whole parameters (a sharded model gathers them first,
 ``models/model.py``) and, under rules over a ``DeviceMesh``, this rank's
 block of the batch: activations are not sharded, so the JAX package's
 ``constrain`` annotations have nothing to do here. The MoE FFN counts its
 capacity over the global batch then, and the expert-parallel MoE runs over
 the ``DeviceMesh`` (``_moe_ffn``).
+
+The ``mla`` and ``mla_moe`` blocks (the port's own) are pre-norm blocks of
+latent attention (``models/mla.py``) and a SwiGLU MLP, or a MoE FFN routed
+as the configuration says (``router_scoring``) with its shared experts, a
+SwiGLU of ``num_shared_experts`` x ``expert_d_ff`` under the weights
+``wg``/``wu``/``wd``, added to the routed output (the profiler mark
+``arm.moe.shared``).
 """
 from __future__ import annotations
 
@@ -34,12 +43,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.distributed.sharding import active_rules
 from repro_torch.kernels import ops
 
 from .attention import attention, direct_attention
 from .config import ModelConfig
-from .mlp import mlp_apply, rmsnorm
+from .mla import mla_attention, mla_attention_decode
+from .mlp import mlp_apply, rmsnorm, swiglu
 from .moe import local_experts, moe_mlp, moe_mlp_ep
 from .rglru import rglru_decode_step, rglru_gates, rglru_scan
 from .rotary import apply_rope
@@ -183,8 +194,21 @@ def _moe_ffn(params, x: torch.Tensor, cfg: ModelConfig):
                               cfg.expert_capacity_factor, mesh)
     else:
         out, aux = moe_mlp(flat, params["router"], params["ewg"], params.get("ewu"),
-                           params["ewd"], cfg.experts_per_token, cfg.expert_capacity_factor)
+                           params["ewd"], cfg.experts_per_token, cfg.expert_capacity_factor,
+                           **_router_options(params, cfg))
+    if cfg.num_shared_experts:
+        with trace.mark("arm.moe.shared"):
+            out = out + swiglu(flat, params["wg"], params["wu"], params["wd"])
     return out.reshape(B, S, D), aux
+
+
+def _router_options(params, cfg: ModelConfig) -> Dict:
+    """``moe_mlp``'s routing keywords: none under softmax scoring (its
+    default), else the sigmoid router's bias and scaling."""
+    if cfg.router_scoring == "softmax":
+        return {}
+    return {"scoring": cfg.router_scoring, "bias": params["router_bias"],
+            "scaling": cfg.routed_scaling}
 
 
 def moe_block(params, x: torch.Tensor, cfg: ModelConfig, *, window: int,
@@ -206,6 +230,54 @@ def moe_block_decode(params, x: torch.Tensor, cache: Cache, cfg: ModelConfig, po
     h, cache = attn_sublayer_decode(params, rmsnorm(x, params["ln1"], cfg.norm_eps), cfg,
                                     cache, pos, window, ring_pos)
     x = x + h
+    out, _ = _moe_ffn(params, x, cfg)
+    return x + out, cache
+
+
+def mla_block(params, x: torch.Tensor, cfg: ModelConfig, *, window: int,
+              make_cache: bool = False):
+    """Latent attention, then a SwiGLU MLP; with ``make_cache``,
+    ``(output, cache)``."""
+    h = mla_attention(params, rmsnorm(x, params["ln1"], cfg.norm_eps), cfg, window=window,
+                      make_cache=make_cache)
+    h, cache = h if make_cache else (h, None)
+    x = x + h
+    x = x + mlp_apply(rmsnorm(x, params["ln2"], cfg.norm_eps), params, "swiglu")
+    return (x, cache) if make_cache else x
+
+
+def mla_moe_block(params, x: torch.Tensor, cfg: ModelConfig, *, window: int,
+                  make_cache: bool = False):
+    """Latent attention, then the MoE FFN with its shared experts:
+    ``(output, aux)`` (aux None under sigmoid scoring); with
+    ``make_cache``, ``(output, aux, cache)``."""
+    h = mla_attention(params, rmsnorm(x, params["ln1"], cfg.norm_eps), cfg, window=window,
+                      make_cache=make_cache)
+    h, cache = h if make_cache else (h, None)
+    x = x + h
+    out, aux = _moe_ffn(params, x, cfg)
+    return (x + out, aux, cache) if make_cache else (x + out, aux)
+
+
+def _mla_decode(params, x: torch.Tensor, cache: Cache, cfg: ModelConfig, pos: int,
+                window: int, ring_pos: torch.Tensor):
+    xn = rmsnorm(x, params["ln1"], cfg.norm_eps)
+    slot = decode_slot(pos, cache["c_kv"].shape[1], window)
+    h, cache = mla_attention_decode(params, xn, cfg, cache, pos, slot, window, ring_pos)
+    return x + h, cache
+
+
+def mla_block_decode(params, x: torch.Tensor, cache: Cache, cfg: ModelConfig, pos: int, *,
+                     window: int, ring_pos: torch.Tensor):
+    x, cache = _mla_decode(params, x, cache, cfg, pos, window, ring_pos)
+    return x + mlp_apply(rmsnorm(x, params["ln2"], cfg.norm_eps), params, "swiglu"), cache
+
+
+def mla_moe_block_decode(params, x: torch.Tensor, cache: Cache, cfg: ModelConfig, pos: int, *,
+                         window: int, ring_pos: torch.Tensor):
+    """One step: the B decode tokens are routed together, and the capacity
+    counts those B tokens."""
+    x, cache = _mla_decode(params, x, cache, cfg, pos, window, ring_pos)
     out, _ = _moe_ffn(params, x, cfg)
     return x + out, cache
 

@@ -94,6 +94,32 @@ def init_block_params(gen: Optional[torch.Generator], btype: str, cfg: ModelConf
             if gated:
                 p["ewu"] = dense((E, D, F), D)
             p["ewd"] = dense((E, F, D), F)
+    elif btype in ("mla", "mla_moe"):
+        r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        p["ln1"] = zeros((D,))
+        p["wq"] = dense((D, H * (dn + dr)), D)
+        p["wkv_a"] = dense((D, r + dr), D)
+        p["kv_norm"] = zeros((r,))
+        p["wkv_b"] = dense((r, H * (dn + dv)), r)
+        p["wo"] = dense((H * dv, D), H * dv)
+        p["ln2"] = zeros((D,))
+        if btype == "mla":
+            p["wg"] = dense((D, F), D)
+            p["wu"] = dense((D, F), D)
+            p["wd"] = dense((F, D), F)
+        else:
+            E, Fe = cfg.num_experts, cfg.expert_width
+            p["router"] = dense((D, E), D)
+            if cfg.router_scoring == "sigmoid":
+                p["router_bias"] = zeros((E,))          # trained from 0, as published
+            p["ewg"] = dense((E, D, Fe), D)
+            p["ewu"] = dense((E, D, Fe), D)
+            p["ewd"] = dense((E, Fe, D), Fe)
+            Fs = cfg.num_shared_experts * Fe
+            if Fs:
+                p["wg"] = dense((D, Fs), D)
+                p["wu"] = dense((D, Fs), D)
+                p["wd"] = dense((Fs, D), Fs)
     elif btype == "ssm":
         Din, N, R, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank, cfg.ssm_conv
         p["ln"] = zeros((D,))

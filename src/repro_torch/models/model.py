@@ -55,11 +55,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.distributed.sharding import batch_sum, unshard
 
 from . import blocks as B
-from .config import ModelConfig
+from .config import MLA_TYPES, ModelConfig
 from .init import init_params, unstack_params
 from .mlp import rmsnorm
 
 IGNORE = -1
+ATTENTION_TYPES = ("attn", "moe", "mla", "mla_moe")   # the block types with a k/v or latent cache
 
 
 def block_window(cfg: ModelConfig) -> int:
@@ -78,7 +79,7 @@ class Block(nn.Module):
 
     def __init__(self, btype: str, cfg: ModelConfig, params: Dict[str, torch.Tensor]):
         super().__init__()
-        if btype not in ("attn", "moe", "ssm", "rec"):
+        if btype not in ("attn", "moe", "ssm", "rec", "mla", "mla_moe"):
             raise ValueError(btype)
         self.btype = btype
         self.cfg = cfg
@@ -89,12 +90,17 @@ class Block(nn.Module):
         return {k: unshard(v) for k, v in self.params.items()}
 
     def forward(self, x: torch.Tensor, window: int):
-        """``(output, aux)``: the aux loss of a MoE layer, None for the others."""
+        """``(output, aux)``: the aux loss of a MoE layer, None for the others
+        (and for a sigmoid-routed one)."""
         params = self.whole_params()
         if self.btype == "moe":
             return B.moe_block(params, x, self.cfg, window=window)
+        if self.btype == "mla_moe":
+            return B.mla_moe_block(params, x, self.cfg, window=window)
         if self.btype == "attn":
             return B.attn_block(params, x, self.cfg, window=window), None
+        if self.btype == "mla":
+            return B.mla_block(params, x, self.cfg, window=window), None
         if self.btype == "ssm":
             return B.ssm_block(params, x, self.cfg), None
         return B.rec_block(params, x, self.cfg), None
@@ -102,11 +108,13 @@ class Block(nn.Module):
     def prefill(self, x: torch.Tensor, window: int):
         """``(output, cache)`` over the whole sequence."""
         params = self.whole_params()
-        if self.btype == "moe":
-            x, _, cache = B.moe_block(params, x, self.cfg, window=window, make_cache=True)
+        if self.btype in ("moe", "mla_moe"):
+            fn = B.moe_block if self.btype == "moe" else B.mla_moe_block
+            x, _, cache = fn(params, x, self.cfg, window=window, make_cache=True)
             return x, cache
-        if self.btype == "attn":
-            return B.attn_block(params, x, self.cfg, window=window, make_cache=True)
+        if self.btype in ("attn", "mla"):
+            fn = B.attn_block if self.btype == "attn" else B.mla_block
+            return fn(params, x, self.cfg, window=window, make_cache=True)
         if self.btype == "ssm":
             return B.ssm_block(params, x, self.cfg, make_cache=True)
         return B.rec_block(params, x, self.cfg, make_cache=True)
@@ -115,8 +123,9 @@ class Block(nn.Module):
                ring: Optional[torch.Tensor]) -> torch.Tensor:
         """One token (B, 1, D); ``cache`` is written in place."""
         params = self.whole_params()
-        if self.btype in ("attn", "moe"):
-            fn = B.attn_block_decode if self.btype == "attn" else B.moe_block_decode
+        if self.btype in ATTENTION_TYPES:
+            fn = {"attn": B.attn_block_decode, "moe": B.moe_block_decode,
+                  "mla": B.mla_block_decode, "mla_moe": B.mla_moe_block_decode}[self.btype]
             return fn(params, x, cache, self.cfg, pos, window=window, ring_pos=ring)[0]
         fn = B.ssm_block_decode if self.btype == "ssm" else B.rec_block_decode
         return fn(params, x, cache, self.cfg, pos)[0]
@@ -231,7 +240,7 @@ class LM(nn.Module):
         """Slots of the attention caches after a prefill of ``seq_len``
         positions (0 without attention layers): ``min(window, seq_len)``
         when windowed, else ``seq_len``."""
-        if not set(self.cfg.layer_types) & {"attn", "moe"}:
+        if not set(self.cfg.layer_types) & set(ATTENTION_TYPES):
             return 0
         w = self.window
         return min(w, seq_len) if w > 0 else seq_len
@@ -267,7 +276,7 @@ class LM(nn.Module):
                 fix = lambda t: _pad_slots(t, extra_slots)
             ring = torch.as_tensor(ring, dtype=torch.int32, device=self.device)
             for i, cache in enumerate(layers):
-                if "k" not in cache:
+                if "k" not in cache and "c_kv" not in cache:
                     continue
                 cache = {name: fix(t) for name, t in cache.items()}
                 if self.cfg.kv_quant == "int8":
@@ -301,7 +310,10 @@ class LM(nn.Module):
         zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=dev)
         layers = []
         for btype in cfg.layer_types:
-            if btype in ("attn", "moe"):
+            if btype in MLA_TYPES:
+                layers.append({"c_kv": zeros((batch, T, cfg.kv_lora_rank), self.tok.dtype),
+                               "k_pe": zeros((batch, T, cfg.qk_rope_head_dim), self.tok.dtype)})
+            elif btype in ("attn", "moe"):
                 if cfg.kv_quant == "int8":
                     layers.append({"k": zeros((batch, T, G, hd), torch.int8),
                                    "v": zeros((batch, T, G, hd), torch.int8),
@@ -336,6 +348,10 @@ class LM(nn.Module):
         count are the global batch's, and the loss is the same on every
         rank."""
         cfg = self.cfg
+        if cfg.router_scoring != "softmax":
+            raise ValueError(f"training's aux loss of {cfg.router_scoring} routing is not "
+                             f"computed: LM.loss does not take the block types "
+                             f"{sorted(set(cfg.layer_types) & {'moe', 'mla_moe'})} ({cfg.name})")
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         fe = batch.get("frontend_embeds")
         fe = None if fe is None else torch.as_tensor(fe, device=self.device)

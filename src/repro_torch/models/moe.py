@@ -3,7 +3,8 @@
 
 Dispatch is the JAX package's static-shape formulation:
   1. router logits (f32) -> top-k experts + softmax-renormalized combine
-     weights per token,
+     weights per token (or, under sigmoid scoring, the port's own: DeepSeek-V3's
+     ``noaux_tc`` router with one group, :func:`router_sigmoid_topk`),
   2. each (token, slot) pair is ranked within its expert in token-major
      arrival order (a running count of one-hots) and dropped at ranks
      ``>= capacity_for(T, E, k, capacity_factor)``,
@@ -24,6 +25,12 @@ einsums outside any Pallas kernel); on the card the products go to cuBLAS.
 The router product runs in f32 as JAX's does: with TF32 on for f32
 matmuls (``torch.backends.cuda.matmul.allow_tf32``, off by default) the
 logits would round differently and a near tie could pick another expert.
+
+While the profiler records (:func:`repro_torch.trace.recording`), every
+call adds its routed (token, slot) pairs and those dropped past capacity to
+:data:`PAIRS` by MoE shape, the dropped count kept on the device, from
+zero at the recording's start: outside a recording nothing is counted and
+nothing syncs.
 
 Expert parallelism (``cfg.moe_ep``): :func:`moe_mlp_ep` is the JAX
 package's ``shard_map`` body run by every process of a
@@ -65,6 +72,60 @@ def router_topk(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     return idx, torch.softmax(logits.gather(-1, idx).float(), dim=-1)
 
 
+def router_sigmoid_topk(logits: torch.Tensor, k: int, bias: torch.Tensor,
+                        scaling: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(T, E) f32 logits -> ((T, k) expert ids, (T, k) f32 weights) as
+    DeepSeek-V3's ``noaux_tc`` router with one expert group: the k experts
+    of the largest ``sigmoid(logits) + bias`` (the order of
+    :func:`router_topk`), weighed by their unbiased sigmoid scores,
+    normalised to sum 1 (over the sum + 1e-20, as published), then times
+    ``scaling``."""
+    scores = torch.sigmoid(logits.float())
+    _, idx = torch.sort(_total_order_key(scores + bias.float()), dim=-1, descending=True,
+                        stable=True)
+    idx = idx[:, :k]
+    w = scores.gather(-1, idx)
+    return idx, w / (w.sum(dim=-1, keepdim=True) + 1e-20) * scaling
+
+
+class PairCount:
+    """Routed (token, slot) pairs and those dropped past capacity, by MoE
+    shape ``(experts, k)``, over the :func:`moe_mlp` calls made since the
+    profiler last started recording (:meth:`reset` is called then). The
+    routed pairs are host counts (the shapes give them); the dropped pairs
+    are summed on each device and read, with a sync, by :meth:`dropped`.
+    ``key=None`` reads every shape's sum."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self._routed: dict = {}
+        self._dropped: dict = {}
+
+    def add(self, keep: torch.Tensor, key: Tuple[int, int]) -> None:
+        self._routed[key] = self._routed.get(key, 0) + keep.numel()
+        with torch.inference_mode():                # an update the same in any grad mode
+            acc = self._dropped.get((key, keep.device))
+            if acc is None:
+                acc = self._dropped[(key, keep.device)] = torch.zeros(
+                    (), dtype=torch.int64, device=keep.device)
+            acc.add_(keep.numel() - keep.sum())
+
+    def keys(self) -> list:
+        return sorted(self._routed)
+
+    def routed(self, key: Optional[Tuple[int, int]] = None) -> int:
+        return sum(n for k, n in self._routed.items() if key in (None, k))
+
+    def dropped(self, key: Optional[Tuple[int, int]] = None) -> int:
+        return sum(int(t) for (k, _), t in self._dropped.items() if key in (None, k))
+
+
+PAIRS = PairCount()
+trace.on_recording_start(PAIRS.reset)
+
+
 def capacity_for(tokens: int, num_experts: int, k: int, factor: float) -> int:
     cap = int(math.ceil(tokens * k / num_experts * factor))
     return max(8, -(-cap // 8) * 8)  # round up to a multiple of 8, as the JAX package does
@@ -78,13 +139,22 @@ def moe_mlp(
     wd: torch.Tensor,                # (E, F, D)
     k: int,
     capacity_factor: float = 1.25,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    *,
+    scoring: str = "softmax",
+    bias: Optional[torch.Tensor] = None,
+    scaling: float = 1.0,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (output (T, D) in x's dtype, f32 aux load-balancing loss).
     Where the batch is split over ranks, ``x`` is this rank's block and the
     capacity, the ranks within each expert and the aux are the global
     batch's (see the module docstring). Under the profiler its four parts
     are the marks ``arm.moe.route``, ``.dispatch``, ``.experts`` and
-    ``.combine`` (:func:`repro_torch.trace.mark`)."""
+    ``.combine`` (:func:`repro_torch.trace.mark`).
+
+    ``scoring="sigmoid"`` routes by :func:`router_sigmoid_topk` with
+    ``bias`` and ``scaling``; the dispatch, experts and
+    combine are the same, and no aux is computed (None): the port trains
+    no sigmoid-routed model."""
     T, D = x.shape
     E = router_w.shape[1]
     blocks, block = batch_ranks()
@@ -93,7 +163,10 @@ def moe_mlp(
 
     with trace.mark("arm.moe.route"):
         logits = x.float() @ router_w.float()                   # (T, E) f32
-        expert_idx, combine_w = router_topk(logits, k)          # (T, k)
+        if scoring == "softmax":
+            expert_idx, combine_w = router_topk(logits, k)      # (T, k)
+        else:
+            expert_idx, combine_w = router_sigmoid_topk(logits, k, bias, scaling)
     with trace.mark("arm.moe.dispatch"):
         # Rank of each (token, slot) within its expert, by arrival order: the
         # running count of one-hots, held expert-major so that the count runs
@@ -109,6 +182,8 @@ def moe_mlp(
         counts = batch_gather(onehot.sum(dim=1, dtype=torch.int32))       # (blocks, E)
         offset = counts[:block].sum(dim=0, dtype=torch.int32)
         keep = slot + offset[flat_expert] < C                   # capacity drop
+        if trace.recording():
+            PAIRS.add(keep, (E, k))
 
         # Scatter token features into the (E, C, D) dispatch buffer; dropped
         # pairs land on a scratch row past the buffer.
@@ -129,6 +204,8 @@ def moe_mlp(
         gathered = torch.where(keep[:, None], flat_out[torch.where(keep, buf_index, 0)], 0.0)
         w = combine_w.reshape(-1)[:, None].to(x.dtype)
         out = (gathered * w).reshape(T, k, D).sum(dim=1)
+        if scoring != "softmax":
+            return out, None
 
         # Switch-style load-balance auxiliary loss.
         probs = torch.softmax(logits, dim=-1)                   # (T, E)

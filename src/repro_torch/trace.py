@@ -43,7 +43,7 @@ import collections
 import itertools
 import time
 from contextlib import nullcontext
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -62,6 +62,7 @@ _range = (getattr(torch._C._profiler, "_RecordFunctionFast", None)
           or torch.profiler.record_function)
 _now = time.monotonic
 _NULL = nullcontext()
+_on_start: List[Callable[[], None]] = []    # called as the profiler starts recording
 
 
 class span:
@@ -101,6 +102,32 @@ def mark(name: str):
     if _profiling():
         return _range(name)
     return _NULL
+
+
+def recording() -> bool:
+    """Whether the profiler records: what :func:`mark` opens a range on, and
+    what the program's device-side counters count under."""
+    return _profiling()
+
+
+def on_recording_start(fn: Callable[[], None]) -> None:
+    """Call ``fn()`` whenever the profiler starts recording: torch calls
+    ``torch.autograd.profiler._run_on_profiler_start`` by name then, and
+    that function is wrapped here once. Where a torch lacks it, ``fn`` is
+    never called."""
+    import torch.autograd.profiler as prof
+
+    start = getattr(prof, "_run_on_profiler_start", None)
+    if start is None:
+        return
+    if not _on_start:
+        def started() -> None:
+            start()
+            for f in _on_start:
+                f()
+
+        prof._run_on_profiler_start = started
+    _on_start.append(fn)
 
 
 def new_group() -> int:

@@ -33,6 +33,7 @@ from repro.models import rotary as jrotary
 from repro.models import ssm as jssm
 from repro_torch import configs, convert
 from repro_torch.models import LM, attention, blocks, init, mlp, rglru, rotary, ssm
+from repro_torch.models.config import ModelConfig
 
 ARCHS = jconfigs.list_archs()
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -57,9 +58,15 @@ def smoke(request):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_copied_verbatim(arch):
+    """Every field of the JAX package's configuration has its value in the
+    port's, and the port's own fields (latent attention, the sigmoid router,
+    shared experts, leading dense layers) are those a port configuration of
+    the JAX fields alone takes: its defaults."""
     for getter in ("get_config", "get_smoke_config"):
         want = dataclasses.asdict(getattr(jconfigs, getter)(arch))
-        assert dataclasses.asdict(getattr(configs, getter)(arch)) == want
+        got = getattr(configs, getter)(arch)
+        assert {k: v for k, v in dataclasses.asdict(got).items() if k in want} == want
+        assert got == ModelConfig(**want)
     assert configs.get_config(arch).param_count() == jconfigs.get_config(arch).param_count()
     assert configs.get_config(arch).flops_per_token(128) == jconfigs.get_config(arch).flops_per_token(128)
 

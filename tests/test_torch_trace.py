@@ -225,7 +225,8 @@ def test_every_span_and_mark_is_on_the_kineto_timeline():
 
 NAMES = ("scheduler.dispatch", "scheduler.retire", "scheduler.prefetch", "router.plan",
          "router.gather", "router.wave", "router.finalize", "arm.moe.route", "arm.moe.dispatch",
-         "arm.moe.experts", "arm.moe.combine")
+         "arm.moe.experts", "arm.moe.combine", "arm.moe.shared", "arm.mla.project",
+         "arm.mla.attend")
 
 
 def _span_calls():
